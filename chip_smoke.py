@@ -2,16 +2,37 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version on the card, drives the port's main path
-(``repro_torch.sim.simulate``) on the §V worked example and on a full-size
-deployment, and prints:
+Builds the port's CUDA kernels from the sources in this checkout (one
+``nvcc`` each, in parallel), holds each against its plain PyTorch version
+on the card, and drives the port's paths through the entry points a user
+calls, each with the launch counts set to 0 just before it and read just
+after:
+
+1. build; 2. the bound's timing probes; 3. the cache-scan kernel against
+   its plain version, every policy x prefetch;
+4. ``simulate`` on the §V worked example;
+5. ``simulate``'s stages on the full-size deployment (16 shards x 16,384
+   lines, 2^22 requests), and the cache-scan kernel against its plain
+   version on the first 2^17 requests of its rows;
+6. the reuse-distance kernel against its plain version at small shapes;
+7. the cache-scan kernel with its own policy and beta on each of 8 rows
+   in one launch, against its plain version;
+8. the miss-rate-curve route at full width: ``sweep`` over 64 cache sizes
+   of the full-size deployment under LRU (one reuse-distance launch, no
+   cache-scan launch), its counters at 16,384 lines against the
+   cache-scan kernel's, and the reuse kernel against its plain version on
+   the whole distance array;
+9. the sweep's megabatch at full width: 16 points, 8 cache signatures,
+   one cache-scan launch of 128 rows, and the cache-scan kernel against
+   its plain version on those rows' first 2^17 steps.
+
+It prints:
 
 - the card's name and power limit, as ``nvidia-smi`` prints them;
 - one line per phase, with its times;
-- one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-  main path, its agreement with the plain version, its time, the plain
-  version's time and its bound;
+- one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
+  path, its agreement with the plain version, its time, the plain
+  version's time and its bound, term by term;
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits nonzero. Without CUDA, or without the
@@ -76,22 +97,20 @@ def cuda_ms(fn, reps: int = 1) -> tuple[float, object]:
     return start.elapsed_time(stop) / reps, out
 
 
-def filled_lines(pages: np.ndarray, n_lines: int) -> int:
-    """Lines the lookups of all steps scan: a step scans the lines filled
-    before it. No line is evicted before the cache is full, so until then
-    the fill is the number of distinct pages the row has seen."""
-    total = 0
-    for row in pages:
-        new = np.zeros(len(row), np.int64)
-        new[np.unique(row, return_index=True)[1]] = 1
-        seen = np.cumsum(new) - new
-        total += int(np.minimum(seen, n_lines).sum())
-    return total
+def filled_lines(row: np.ndarray, n_lines: int) -> int:
+    """Lines the lookups of one row's steps scan: a step scans the lines
+    filled before it. No line is evicted before the cache is full, so until
+    then the fill is the number of distinct pages the row has seen."""
+    new = np.zeros(len(row), np.int64)
+    new[np.unique(row, return_index=True)[1]] = 1
+    seen = np.cumsum(new) - new
+    return int(np.minimum(seen, n_lines).sum())
 
 
-def bound(policy: str, out: dict, pages: np.ndarray, n_lines: int, W: int,
+def bound(policies, out: dict, pages: np.ndarray, n_lines: int, W: int,
           chain_ms: float, l2_rate: float) -> dict:
-    """Least time the card could take for this run's work, term by term:
+    """Least time the card could take for this run's work, term by term
+    (``policies``: one policy for every row, or one a row):
 
     - ``io_bytes_ms``: inputs read once (page, write flag, window id; 12 B
       a request) and outputs written once, over the HBM rate;
@@ -108,21 +127,54 @@ def bound(policy: str, out: dict, pages: np.ndarray, n_lines: int, W: int,
     ``operations`` the last two (the chain is a chain of dependent
     operations)."""
     B, L = pages.shape
-    scanned = filled_lines(pages, n_lines)
-    ev_lines = int(out["evictions"].sum()) * n_lines
+    if isinstance(policies, str):
+        policies = [policies] * B
+    evictions = out["evictions"].tolist()
+    state = ops = 0
+    fills: dict = {}  # a sweep's points repeat the same shard rows
+    for row, policy, ev in zip(pages, policies, evictions):
+        key = row.tobytes()
+        if key not in fills:
+            fills[key] = filled_lines(row, n_lines)
+        scanned = fills[key]
+        ev_lines = ev * n_lines
+        state += 4 * scanned + 4 * VICTIM_ARRAYS[policy] * ev_lines
+        ops += (OPS_LOOKUP * scanned
+                + ev_lines * (OPS_ARGMIN * VICTIM_ARRAYS[policy]
+                              + OPS_DRAW * DRAWS[policy]))
     io = 12 * B * L + B * (4 * 8 + 4 * 3 + 4 * 3 + 4 * 13 * W)
-    state = 4 * scanned + 4 * VICTIM_ARRAYS[policy] * ev_lines
-    ops = (OPS_LOOKUP * scanned
-           + ev_lines * (OPS_ARGMIN * VICTIM_ARRAYS[policy]
-                         + OPS_DRAW * DRAWS[policy]))
     terms = dict(io_bytes_ms=1e3 * io / HBM_BYTES_PER_S,
                  state_bytes_ms=1e3 * state / l2_rate,
                  ops_ms=1e3 * ops / INT32_OPS_PER_S,
                  serial_chain_ms=chain_ms)
+    return _largest(terms)
+
+
+def _largest(terms: dict) -> dict:
     top = max(terms, key=terms.get)
     return dict(bound_ms=terms[top],
                 bound_by=("bytes" if "bytes" in top else "operations"),
                 bound_terms=terms)
+
+
+def reuse_bound(prev: np.ndarray, valid: np.ndarray) -> dict:
+    """Least time for the reuse-distance pass over ``prev``/``valid``:
+
+    - ``bytes_ms``: ``prev`` (4 B) and ``valid`` (1 B) read once and the
+      distances (4 B) written once, over the HBM rate;
+    - ``ops_ms``: the compares a direct count needs, ``j - P[j] - 1`` for
+      each real position ``j`` with ``P[j] >= 0`` (the keys strictly
+      between the two accesses), over the int32 rate.
+
+    An O(L log L) count (a Fenwick tree over ``P``) would need fewer
+    operations; this bound prices the algorithm the kernel runs."""
+    S, L = prev.shape
+    j = np.arange(L, dtype=np.int64)[None, :]
+    reused = valid & (prev >= 0)
+    compares = int(np.where(reused, j - prev.astype(np.int64) - 1, 0).sum())
+    return dict(_largest(dict(bytes_ms=1e3 * 9 * S * L / HBM_BYTES_PER_S,
+                              ops_ms=1e3 * compares / INT32_OPS_PER_S)),
+                compares=compares)
 
 
 def compare(got: dict, want: dict, ctx: str) -> float:
@@ -143,6 +195,24 @@ def compare(got: dict, want: dict, ctx: str) -> float:
     return err
 
 
+def check_report(rep, ctr, ctx: str) -> None:
+    """A sweep report's per-shard and windowed counters equal
+    ``tier1_counters``'s ``ctr`` in every field."""
+    from repro_torch.sim.engine import _ffill_weights
+    for f in ("requests", "reads", "writes", "hits", "misses",
+              "prefetch_hits", "tier2_reads", "tier2_writes", "evictions"):
+        if [getattr(sh, f) for sh in rep.shards] != getattr(ctr, f).tolist():
+            raise AssertionError(f"{ctx} != tier1_counters in {f}")
+    for f in ("requests", "hits", "misses", "prefetch_hits", "tier2_reads",
+              "tier2_writes", "evictions", "expert_use"):
+        if not np.array_equal(getattr(rep.windows, f),
+                              getattr(ctr, "win_" + f)):
+            raise AssertionError(f"{ctx} != tier1_counters in windows.{f}")
+    if not np.array_equal(rep.windows.weights, _ffill_weights(
+            ctr.win_weights, ctr.win_requests)):
+        raise AssertionError(f"{ctx}: window weights differ")
+
+
 def fmt_bound(b: dict) -> str:
     terms = ", ".join(f"{k[:-3]} {v:.4f}" for k, v in b["bound_terms"].items())
     return f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {terms})"
@@ -154,9 +224,11 @@ def phase_build():
 
     from repro_torch.kernels import cache_scan as cs
     from repro_torch.kernels import probe
+    from repro_torch.kernels import reuse_distance as rd
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         libs = list(pool.map(lambda f: f(), (cs.build_cache_scan,
+                                             rd.build_reuse_distance,
                                              probe.build_probe)))
     dt = time.perf_counter() - t0
     for lib in libs:
@@ -367,7 +439,7 @@ def phase_full_size(l2_rate: float) -> dict:
         f"integers exact, f32 bit for bit); kernel {pk_ms:.1f} ms, plain "
         f"{pp_ms:.1f} ms, {fmt_bound(pre_b)}; evictions/row "
         f"{int(pout['evictions'].min())}..{int(pout['evictions'].max())}")
-    return dict(launches=launches, ms=pk_ms, plain_ms=pp_ms,
+    return dict(counters=ctr, launches=launches, ms=pk_ms, plain_ms=pp_ms,
                 max_abs_err=err, **pre_b,
                 shape=f"{B}x{P} (first {P} requests of the main path's "
                       f"rows), n_lines={cfg.n_lines}, n_windows={W}, ws",
@@ -376,6 +448,294 @@ def phase_full_size(l2_rate: float) -> dict:
                 main_bound_terms=main_b["bound_terms"],
                 main_shape=f"{B}x{L} rows, n_lines={cfg.n_lines}, "
                            f"n_windows={W}, ws")
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels import cache_scan as cs
+    from repro_torch.kernels import reuse_distance as rd
+    cs.reset_cache_scan_launch_count()
+    rd.reset_reuse_compile_count()
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import cache_scan as cs
+    from repro_torch.kernels import reuse_distance as rd
+    return dict(cache_scan=cs.cache_scan_launch_count(),
+                reuse_distance=rd.reuse_compile_count())
+
+
+def phase_reuse_vs_plain() -> None:
+    """Kernel 2 against its plain version at small shapes: rows of several
+    lengths (none a multiple of the 256-query tile but the first), a row of
+    first accesses only, a row of pads only, ragged pads."""
+    from repro_torch.kernels import reuse_distance as rd
+    from repro_torch.kernels.ref import reuse_distance_ref
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    for S, L, n_pages in ((2, 256, 40), (1, 1, 1), (3, 1000, 97),
+                          (4, 4097, 600), (16, 3001, 300), (2, 70001, 9000)):
+        pages = rng.integers(0, n_pages, (S, L)).astype(np.int32)
+        counts = rng.integers(0, L + 1, S)
+        counts[0] = L
+        pages[0] = np.arange(L)            # first accesses only
+        if S > 2:
+            counts[1] = 0                  # pads only
+        prev, valid = rd.prev_occurrence(pages, counts)
+        p = torch.as_tensor(prev, device=dev)
+        v = torch.as_tensor(valid, device=dev)
+        got = rd.reuse_distance_cuda(p, v)
+        torch.cuda.synchronize()
+        want = reuse_distance_ref(p, v)
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(
+                f"reuse kernel != plain at S={S} L={L}: {bad} positions")
+        log(f"[reuse kernel vs plain] S={S} L={L}: equal in every integer "
+            f"(tolerance 0); first accesses {int((prev < 0).sum())}, pads "
+            f"{int((~valid).sum())}")
+
+
+def phase_mixed_knobs(l2_rate: float) -> None:
+    """Kernel 1 with its own policy and beta on each of 8 rows in one
+    launch, against the plain version on the same rows."""
+    from repro_torch.core.traffic import TrafficSpec, make_stream
+    from repro_torch.kernels import cache_scan as cs
+    from repro_torch.kernels import probe
+    from repro_torch.storage.tiered_store import (
+        POLICY_TO_IDX, StoreConfig, StoreHyper, stream_window_ids)
+    B, L, N, W = 8, 4096, 512, 8
+    dev = torch.device("cuda")
+    streams = [make_stream(TrafficSpec(
+        kind="irm", n_requests=L, n_pages=2048 << (b % 3),
+        write_fraction=0.3, seed=20 + b)) for b in range(B)]
+    pages = np.stack([p for p, _ in streams])
+    win = np.tile(stream_window_ids(L, W), (B, 1))
+    win[:, L - 64:] = W
+    policies = ["ws", "lru", "lfu", "random"] * 2
+    betas = [0.5, 0.7, 0.9, 0.7, 0.9, 0.5, 0.7, 0.9]
+    hyper = StoreHyper(
+        alpha=torch.full((B,), 0.5, device=dev),
+        beta=torch.tensor(betas, dtype=torch.float32, device=dev),
+        threshold=torch.full((B,), 0.25, device=dev),
+        policy_idx=torch.tensor([POLICY_TO_IDX[p] for p in policies],
+                                dtype=torch.int32, device=dev))
+    cfg = StoreConfig(n_lines=N).static_config()
+    args = (cfg, hyper, cs.cold_keys(0, B, dev),
+            torch.as_tensor(pages, device=dev),
+            torch.as_tensor(np.stack([w for _, w in streams]), device=dev),
+            torch.as_tensor(win, device=dev))
+    cs.cache_scan_cuda(*args, n_windows=W)  # warm-up
+    k_ms, out = cuda_ms(lambda: cs.cache_scan_cuda(*args, n_windows=W),
+                        reps=3)
+    p_ms, want = cuda_ms(lambda: cs.cache_scan_plain(*args, n_windows=W))
+    compare(out, want, "8 rows, mixed policy and beta")
+    if not (out["evictions"] > 0).all():
+        raise AssertionError("a mixed-knob row never evicted")
+    chain_ms = probe.chain_step_ms(dev, n_rows=B, steps=L,
+                                   threads=cs.cache_scan_threads(N))
+    b = bound(policies, out, pages, N, W, chain_ms, l2_rate)
+    log(f"[mixed knobs] {B} rows x {L} requests, n_lines={N}, {W} windows, "
+        f"policies {policies}, betas {betas}, one launch: equal (tolerance "
+        f"0: integers exact, f32 bit for bit); kernel {k_ms:.3f} ms, plain "
+        f"{p_ms:.1f} ms, {fmt_bound(b)}; evictions "
+        f"{out['evictions'].tolist()}")
+
+
+def mrc_sizes() -> list:
+    """64 distinct cache sizes, geometric from 2^8 to 2^18, the one
+    nearest 16,384 set to it."""
+    sizes = np.round(2.0 ** np.linspace(8, 18, 64)).astype(np.int64)
+    sizes[np.argmin(np.abs(sizes - 16384))] = 16384
+    if len(set(sizes.tolist())) != 64:
+        raise AssertionError("MRC sizes are not distinct")
+    return sizes.tolist()
+
+
+def phase_mrc(spec) -> dict:
+    """The MRC route at full width: the full-size deployment under LRU in
+    one window, 64 cache sizes from one reuse-distance pass."""
+    from repro_torch.kernels import reuse_distance as rd
+    from repro_torch.kernels.ref import reuse_distance_ref
+    from repro_torch.sim import sweep, tier1_counters
+    from repro_torch.sim.engine import fault_owner, stream_for_spec
+    from repro_torch.sim.mrc import _bucket_cap
+    from repro_torch.storage.tiered_store import partition_streams
+    sizes = mrc_sizes()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sweep(spec, {"store.n_lines": sizes}, mrc="require", stream="off",
+                profile=True, device="cuda")
+    sweep_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches != dict(cache_scan=0, reuse_distance=1):
+        raise AssertionError(f"MRC sweep launched {launches}, want no "
+                             "cache-scan launch and one reuse launch")
+    for pt, rep in zip(res.points, res.reports):
+        if not (np.isfinite(rep.response_s) and rep.requests == 2**22):
+            raise AssertionError(f"MRC report {pt} not finite / complete")
+    rep16 = res.reports[sizes.index(16384)]
+    check_report(rep16, tier1_counters(
+        spec.replace(**{"store.n_lines": 16384}), device="cuda"),
+        "MRC sweep at 16,384 lines")
+
+    # The pass's stages again, one by one, on the same inputs: their times,
+    # and the distance array the plain version is held against.
+    t0 = time.perf_counter()
+    pages, is_write, times, n_pages, W, _ = stream_for_spec(spec)
+    owner = fault_owner(spec, pages, times, n_pages)
+    t1 = time.perf_counter()
+    sh_pages, _, counts, _, _ = partition_streams(
+        pages, is_write, n_shards=spec.n_shards, mapping=spec.mapping,
+        n_pages=n_pages, n_windows=W, owner=owner)
+    t2 = time.perf_counter()
+    capb = _bucket_cap(sh_pages.shape[1])
+    sh_pages = np.pad(sh_pages, ((0, 0), (0, capb - sh_pages.shape[1])))
+    prev, valid = rd.prev_occurrence(sh_pages, counts)
+    t3 = time.perf_counter()
+    dev = torch.device("cuda")
+    p = torch.as_tensor(prev, device=dev)
+    v = torch.as_tensor(valid, device=dev)
+    rd.reuse_distance_cuda(p, v).cpu()
+    t4 = time.perf_counter()
+    stages = dict(stream=t1 - t0, partition=t2 - t1,
+                  prev_occurrence=t3 - t2, distance=t4 - t3)
+    # The sweep's MRC route is its engine stage; what the stages above do
+    # not cover is the host histogram and write-back intervals.
+    stages["histogram"] = res.profile["engine_dispatch"] - sum(
+        stages.values())
+    k_ms, got_d = cuda_ms(lambda: rd.reuse_distance_cuda(p, v), reps=3)
+    p_ms, want_d = cuda_ms(lambda: reuse_distance_ref(p, v))
+    if not torch.equal(got_d, want_d):
+        raise AssertionError(
+            f"reuse kernel != plain on the full [{p.shape[0]}, {capb}] "
+            f"array: {int((got_d != want_d).sum())} positions")
+    b = reuse_bound(prev, valid)
+    S, L = prev.shape
+    log(f"[MRC route] {spec.n_shards} shards x {L} (bucket; loads "
+        f"{int(counts.min())}..{int(counts.max())}), {len(sizes)} sizes "
+        f"{sizes[0]}..{sizes[-1]}: sweep {sweep_s:.2f} s (MRC pass "
+        f"{res.profile['engine_dispatch']:.2f} s, reports "
+        f"{res.profile['report_solve']:.3f} s), launches {launches}; "
+        f"counters at 16,384 lines equal the cache-scan kernel's in every "
+        f"field; stages timed alone: stream {stages['stream']:.2f} s, "
+        f"partition {stages['partition']:.2f} s, prev_occurrence "
+        f"{stages['prev_occurrence']:.2f} s, distance pass (copies "
+        f"included) {stages['distance']:.3f} s, histogram (the MRC pass "
+        f"less those) {stages['histogram']:.2f} s; kernel {k_ms:.2f} ms "
+        f"(CUDA events), plain {p_ms:.1f} ms, equal on the whole [{S}, {L}] "
+        f"array (tolerance 0); {fmt_bound(b)}, {b['compares']} compares; "
+        f"miss rate at 16,384 lines {rep16.miss_rate:.6f}")
+    return dict(launches=launches["reuse_distance"], max_abs_err=0.0,
+                ms=k_ms, plain_ms=p_ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], bound_terms=b["bound_terms"],
+                compares=b["compares"],
+                shape=f"{S}x{L} (the MRC route's rows, full size, lru)")
+
+
+def phase_megabatch(full_ctr, l2_rate: float) -> dict:
+    """The sweep's megabatch at full width: 4 policies x 2 betas (8 cache
+    signatures) x 2 rates, one 2^19 bucket, one launch of 128 rows; then
+    that launch's rows against the plain version on their first PREFIX
+    steps (every row fills its 16,384 lines near step 105,000 and evicts
+    after it)."""
+    from repro_torch.kernels import cache_scan as cs
+    from repro_torch.kernels import probe
+    from repro_torch.sim import sweep
+    from repro_torch.storage.tiered_store import POLICY_TO_IDX
+    spec = full_size_spec()
+    axes = {"store.policy": ["ws", "lru", "lfu", "random"],
+            "store.beta": [0.5, 0.7], "lam": [100.0, 200.0]}
+    timed = []
+    launch = cs.cache_scan_cuda
+
+    def timed_launch(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kw)
+        stop.record()
+        timed.append((start, stop, args, kw, out))
+        return out
+
+    reset_launch_counts()
+    cs.cache_scan_cuda = timed_launch
+    try:
+        t0 = time.perf_counter()
+        res = sweep(spec, axes, stream="off", profile=True, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        cs.cache_scan_cuda = launch
+    launches = launch_counts()
+    if launches != dict(cache_scan=1, reuse_distance=0):
+        raise AssertionError(f"megabatch sweep launched {launches}, want "
+                             "one cache-scan launch and no reuse launch")
+    (start, stop, args, kw, out), = timed
+    k_ms = start.elapsed_time(stop)
+    for pt, rep in zip(res.points, res.reports):
+        vals = (rep.response_s, rep.lam_eff, rep.rho1, rep.rho2,
+                rep.miss_rate)
+        if not all(np.isfinite(x) for x in vals):
+            raise AssertionError(f"report {pt} is not finite: {vals}")
+    i = res.points.index({"store.policy": "ws", "store.beta": 0.7,
+                          "lam": 200.0})
+    check_report(res.reports[i], full_ctr, "(ws, 0.7) sweep point")
+
+    cfg, hyper, keys, pages, writes, win = args
+    B, L = pages.shape
+    name = {v: k for k, v in POLICY_TO_IDX.items()}
+    policies = [name[i] for i in hyper.policy_idx.tolist()]
+    knobs = set(zip(policies, hyper.beta.tolist()))
+    if len(knobs) != 8:
+        raise AssertionError(f"the launch's rows carry {len(knobs)} "
+                             "(policy, beta) pairs, want 8")
+    dev = pages.device
+    threads = cs.cache_scan_threads(cfg.n_lines)
+    W = kw["n_windows"]
+    mega_b = bound(policies, out, pages.cpu().numpy(), cfg.n_lines, W,
+                   probe.chain_step_ms(dev, n_rows=B, threads=threads,
+                                       steps=L), l2_rate)
+
+    # The launch's rows against the plain version on their first PREFIX
+    # steps, with their own knobs, keys and window ids.
+    P = PREFIX
+    pre = (cfg, hyper, keys, *(x[:, :P].contiguous()
+                               for x in (pages, writes, win)))
+    pk_ms, pout = cuda_ms(lambda: cs.cache_scan_cuda(*pre, **kw))
+    pp_ms, want = cuda_ms(lambda: cs.cache_scan_plain(*pre, **kw))
+    err = compare(pout, want, f"megabatch rows, first {P} steps")
+    if not (pout["evictions"] > 0).all():
+        raise AssertionError("a megabatch row never evicted in the prefix")
+    pre_b = bound(policies, pout, pages[:, :P].cpu().numpy(), cfg.n_lines,
+                  W, probe.chain_step_ms(dev, n_rows=B, threads=threads,
+                                         steps=P), l2_rate)
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.profile.items()
+                       if isinstance(v, float))
+    log(f"[megabatch] {len(res.points)} points, 8 cache signatures, one "
+        f"launch of {B} rows x {L} steps (n_lines={cfg.n_lines}, {W} "
+        f"windows): kernel {k_ms:.1f} ms (CUDA events), {fmt_bound(mega_b)}; "
+        f"sweep {wall:.2f} s; profile: {stages}; (ws, 0.7) counters equal "
+        f"phase 5's tier1_counters; every report finite; launches "
+        f"{launches}")
+    log(f"[megabatch, kernel vs plain] the launch's {B} rows (policies x "
+        f"betas {sorted(knobs)}), first {P} steps, n_lines={cfg.n_lines}, "
+        f"{W} windows: equal (tolerance 0: integers exact, f32 bit for "
+        f"bit); kernel {pk_ms:.1f} ms, plain {pp_ms:.1f} ms, "
+        f"{fmt_bound(pre_b)}; evictions/row "
+        f"{int(pout['evictions'].min())}..{int(pout['evictions'].max())}")
+    return dict(sweep_launches=launches["cache_scan"], sweep_ms=k_ms,
+                sweep_bound_ms=mega_b["bound_ms"],
+                sweep_bound_by=mega_b["bound_by"],
+                sweep_bound_terms=mega_b["bound_terms"],
+                sweep_shape=f"{B}x{L} rows (16 points, 8 signatures, mixed "
+                            f"policy and beta), n_lines={cfg.n_lines}, "
+                            f"n_windows={W}",
+                sweep_prefix_ms=pk_ms, sweep_prefix_plain_ms=pp_ms,
+                sweep_prefix_max_abs_err=err,
+                sweep_prefix_bound_ms=pre_b["bound_ms"],
+                sweep_prefix_bound_by=pre_b["bound_by"],
+                sweep_prefix_bound_terms=pre_b["bound_terms"],
+                sweep_prefix_shape=f"{B}x{P} (first {P} steps of the "
+                                   f"megabatch rows)")
 
 
 def main() -> int:
@@ -389,12 +749,23 @@ def main() -> int:
     phase_kernel_vs_plain(l2_rate)
     phase_worked_example()
     full = phase_full_size(l2_rate)
-    kernel = dict(
+    full_ctr = full.pop("counters")
+    phase_reuse_vs_plain()
+    phase_mixed_knobs(l2_rate)
+    mrc = phase_mrc(full_size_spec().replace(
+        **{"store.policy": "lru", "n_windows": 1}))
+    mega = phase_megabatch(full_ctr, l2_rate)
+    cache_scan = dict(
         name="cache_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/cache_scan.cu",
         replaces="src/repro/kernels/cache_scan.py:385", library_ms=None,
-        **full)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+        **full, **mega)
+    reuse = dict(
+        name="reuse_distance", route="cuda",
+        source="src/repro_torch/kernels/csrc/reuse_distance.cu",
+        replaces="src/repro/kernels/reuse_distance.py:142", library_ms=None,
+        **mrc)
+    print(json.dumps({"kernels": [cache_scan, reuse]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,9 +15,13 @@ near tie:
 
 - every 3-element sum is spelled ``(a + b) + c`` and the mean as that sum
   times ``float32(1/3)``;
+- the shared-back term ``alpha * mean`` is ``(alpha * float32(1/3)) *
+  sum``: XLA folds the mean's constant into ``alpha`` first (the two
+  orders differ in the last ulp unless ``alpha`` is a power of two, like
+  the default 0.5);
 - the two products that XLA contracts into fused multiply-adds keep a
-  single rounding: ``prev - prev * pw`` and ``prev * pw + alpha * share``
-  go through :func:`fma_f32` (the CUDA kernel uses ``__fmaf_rn``);
+  single rounding: ``prev - prev * pw`` and ``prev * pw + gain`` go
+  through :func:`fma_f32` (the CUDA kernel uses ``__fmaf_rn``);
 - ``beta ** losses`` is a lookup in a per-row table ``pw[k] = pow(beta,
   k)`` built by :func:`pow_table`. Under ``ws`` the losses are integers in
   ``0..epoch_width`` (``mispred`` is cleared at every epoch boundary); the
@@ -169,8 +173,9 @@ def weight_adjust(ol: OLState, cfg: OLConfig, pw=None) -> OLState:
     losses = torch.where(ol.mispred.to(f32) >= thresh, ol.mispred, 0)
     idx = losses.long().clamp(0, pw.shape[-1] - 1)
     p = torch.gather(pw, -1, idx)
-    share = _sum3(fma_f32(-prev, p, prev))[..., None] * _THIRD.to(dev)
-    w = fma_f32(prev, p, (alpha * share).expand_as(prev))
+    lost = _sum3(fma_f32(-prev, p, prev))[..., None]
+    gain = (alpha * _THIRD.to(dev)) * lost
+    w = fma_f32(prev, p, gain.expand_as(prev))
     w = torch.maximum(w, _FLOOR.to(dev))
     w = w / _sum3(w)[..., None]
     return ol._replace(

@@ -338,9 +338,10 @@ __global__ void __launch_bounds__(1024) cache_scan_kernel(
           pe[e] = s_pw[loss];
           d[e] = __fmaf_rn(-w[e], pe[e], w[e]);
         }
-        const float share = __fmul_rn(__fadd_rn(__fadd_rn(d[0], d[1]), d[2]),
-                                      1.0f / 3.0f);
-        const float gain = __fmul_rn(a, share);
+        // alpha * mean(lost) as the reference's compiler orders it:
+        // (alpha * 1/3) * (d0 + d1 + d2).
+        const float lost = __fadd_rn(__fadd_rn(d[0], d[1]), d[2]);
+        const float gain = __fmul_rn(__fmul_rn(a, 1.0f / 3.0f), lost);
         for (int e = 0; e < kExperts; ++e)
           wn[e] = fmaxf(__fmaf_rn(w[e], pe[e], gain), 1e-8f);
         const float s = __fadd_rn(__fadd_rn(wn[0], wn[1]), wn[2]);

@@ -1,6 +1,11 @@
-"""Plain PyTorch version of the fused tier-1 cache scan.
+"""Plain PyTorch versions of the port's hand kernels.
 
-One request step of the storage engine on a batch of shard rows, written
+- :func:`reuse_distance_ref`: the reuse-distance (Mattson LRU stack
+  distance) dominance count, the golden of ``csrc/reuse_distance.cu``.
+- :func:`cache_scan_ref`: the fused tier-1 cache scan, the golden of
+  ``csrc/cache_scan.cu``.
+
+Cache scan: one request step of the storage engine on a batch of shard rows, written
 with whole-tensor selects (``torch.where`` on one-hot masks) the way the
 reference's one-hot step is. It is the CPU path of
 :func:`repro_torch.kernels.cache_scan.fused_cache_scan` and the version
@@ -21,8 +26,12 @@ import torch
 from repro_torch.core import online_learning as _ol
 from repro_torch.kernels import threefry
 
-__all__ = ["fused_cache_step", "fused_fold", "cache_scan_ref",
-           "NOISE_CHUNK"]
+__all__ = ["DIST_INF", "reuse_distance_ref", "fused_cache_step",
+           "fused_fold", "cache_scan_ref", "NOISE_CHUNK"]
+
+# Reuse distance of a first-ever access (compulsory miss): larger than any
+# possible cache size, so `d < C` is False for every C.
+DIST_INF = 2**31 - 1
 
 # Steps per batch of Random-expert draws when no shared table is given.
 NOISE_CHUNK = 256
@@ -33,6 +42,42 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 with two's-complement wrap-around (the reference's
     int32 arithmetic)."""
     return ((x - _I32_MIN) % _I32_SPAN + _I32_MIN).to(torch.int32)
+
+
+def reuse_distance_ref(prev: torch.Tensor, valid: torch.Tensor, *,
+                       block: int = 128) -> torch.Tensor:
+    """LRU stack (Mattson reuse) distance per request, on ``prev``'s
+    device.
+
+    For request ``j`` of row ``s`` with previous same-page occurrence
+    ``i = prev[s, j]``, the reuse distance is the number of *distinct*
+    pages touched strictly between the two accesses — counted as the
+    positions ``k`` in ``(i, j)`` whose own previous occurrence lies at or
+    before ``i`` (``prev[s, k] <= i``), i.e. the first in-gap occurrence of
+    each distinct page; pads (``valid`` False) never count. First-ever
+    accesses return :data:`DIST_INF`, padding returns ``-1``; distances
+    never cross rows. Returns int32 ``[S, L]``.
+
+    The O(L^2) dominance count is blocked over ``block`` queries at a time
+    on every row at once: a ``[S, block, j0 + block]`` compare against the
+    keys before the block's end (keys at or past a query never count).
+    """
+    prev = torch.as_tensor(prev).to(torch.int32)
+    valid = torch.as_tensor(valid, device=prev.device).to(torch.bool)
+    S, L = prev.shape
+    out = torch.empty((S, L), dtype=torch.int32, device=prev.device)
+    kidx = torch.arange(L, dtype=torch.int32, device=prev.device)
+    for j0 in range(0, L, block):
+        j1 = min(j0 + block, L)
+        pj = prev[:, j0:j1, None]                          # [S, b, 1]
+        m = ((kidx[:j1] > pj)
+             & (kidx[:j1] < kidx[j0:j1, None])
+             & (prev[:, None, :j1] <= pj)
+             & valid[:, None, :j1])
+        d = m.sum(-1, dtype=torch.int32)
+        d = torch.where(pj[..., 0] >= 0, d, DIST_INF)
+        out[:, j0:j1] = torch.where(valid[:, j0:j1], d, -1)
+    return out
 
 
 class _ScanCache(NamedTuple):

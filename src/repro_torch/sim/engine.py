@@ -43,13 +43,16 @@ rates μ(t), and on recovery the failed shard re-warms from a cold cache
 
 The tier-1 stage runs on the ``device`` the caller names (``None`` = the
 card); the report stage is host-side numpy, a copy of the reference's
-scalar report path. ``tenant_mix`` workloads and the batched report solver
-are not ported yet.
+scalar report path. :func:`batched_reports` solves many points' fluid
+transients in one float64 torch call on a device
+(:func:`repro_torch.core.queuing.fluid_two_tier_batched`). ``tenant_mix``
+workloads are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from time import perf_counter
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -60,18 +63,22 @@ from repro_torch.core.queuing import (
     TransientReport,
     TwoTierModel,
     expected_response,
+    fluid_two_tier_batched,
     residence_times,
     service_time_model,
     transient_two_tier,
 )
 from repro_torch.core.traffic import make_stream, make_timed_stream
 from repro_torch.sim.spec import ResolvedRates, SimSpec
-from repro_torch.storage.tiered_store import run_distributed
+from repro_torch.storage.tiered_store import (
+    correct_padded_stats,
+    run_distributed,
+)
 
 __all__ = ["Tier1Counters", "TenantCounters", "WindowSeries", "ShardReport",
            "SimReport", "tier1_counters", "report_from_counters",
-           "batched_reports", "simulate", "fault_owner", "stream_for_spec",
-           "sim_n_pages"]
+           "batched_reports", "counters_from_stats", "simulate",
+           "fault_owner", "stream_for_spec", "sim_n_pages"]
 
 _CHUNKED_SLICE = ("tenant_mix workloads replay through the chunked "
                   "streaming path (sim/stream.py), which is not ported "
@@ -401,6 +408,16 @@ def _assemble_counters(corrected_stats, counts, writes) -> Tier1Counters:
         win_evictions=np.asarray(s.win_evictions, np.int64),
         win_expert_use=np.asarray(s.win_expert_use, np.int64),
         win_weights=np.asarray(s.win_weights, float),
+    )
+
+
+def counters_from_stats(stats, counts, writes, *, cap: int) -> Tier1Counters:
+    """Assemble :class:`Tier1Counters` from *padded* per-shard StreamStats
+    (the sweep engine's batched path), delegating the padding/phantom-miss
+    correction to :func:`repro_torch.storage.tiered_store.
+    correct_padded_stats`."""
+    return _assemble_counters(
+        correct_padded_stats(stats, counts, cap), counts, writes
     )
 
 
@@ -817,12 +834,154 @@ def report_from_counters(spec: SimSpec, ctr: Tier1Counters,
                           _onsets(sh_tr, transient))
 
 
-def batched_reports(items, *, solver: str = "batched"):
-    """Reports of many points with their fluid solves batched: needs the
-    batched fluid solver, which lands with the sweep slice."""
-    raise NotImplementedError(
-        "batched_reports needs the batched fluid solver, which is not "
-        "ported yet (sweep slice); call report_from_counters per point")
+def _report_group_key(prep: _PreparedReport) -> Optional[tuple]:
+    """Points whose fluid solves can stack into one batched call share a
+    key: same window grid / shard count (operand shapes), same window
+    duration, and same structural solver config (k, flow convention, retry
+    policy, spill, μ(Q) hook). None = solve this point on the scalar path
+    (piecewise / idle-degenerate reports)."""
+    if prep.mode != "fluid":
+        return None
+    return (
+        np.shape(prep.lam_sw), prep.duration, prep.spec.k_servers,
+        prep.spec.flow, prep.tr_kw.get("retry"),
+        bool(prep.tr_kw.get("tier1_spill", False)),
+        prep.tr_kw.get("mu_load"),
+    )
+
+
+def _take_fluid(rep: FluidReport, i: int) -> FluidReport:
+    """Slice point ``i`` out of a batched FluidReport (every array field
+    carries the point axis first; None diagnostics stay None)."""
+    return FluidReport(*(None if v is None else np.asarray(v)[i]
+                         for v in rep))
+
+
+def batched_reports(
+    items: Sequence, *, solver: str = "batched", _prof: Optional[dict] = None,
+    device=None,
+) -> list[SimReport]:
+    """Reports for many ``(spec, counters)`` points with the fluid
+    transient solves *batched*: compatible points' windowed rates stack
+    into one ``[point, shard, window]`` tensor solved by one float64 torch
+    window loop on ``device`` (``None`` = the card;
+    :func:`repro_torch.core.queuing.fluid_two_tier_batched`, one solver
+    per structural config, counted by
+    :func:`repro_torch.core.queuing.fluid_compile_count`), the stationary
+    equilibrium solves run as two ``[point, shard]`` array calls per group,
+    and the saturation/metastability onset scans vectorize over the point
+    axis. Report assembly happens host-side from the batched outputs.
+
+    ``solver="scalar"`` runs the same prepare/finish pipeline with the
+    per-point numpy solver (the reference path; it touches no device).
+    Piecewise-mode points (``transient_mode="piecewise"`` or idle streams)
+    always take the scalar path. A third item element (per-tenant
+    counters) needs the chunked-replay slice and raises unless it is None.
+
+    Batched and scalar solves agree to ~1e-13 on the analytic ``k = 1``
+    path (~1e-9 for the ``k > 1`` bisection).
+
+    ``_prof`` (internal, used by ``sweep(profile=True)``): a dict that
+    accumulates ``report_solve`` / ``assembly`` stage seconds.
+    """
+    if solver not in ("batched", "scalar"):
+        raise ValueError(
+            f"solver must be 'batched' or 'scalar', got {solver!r}")
+    preps = []
+    for item in items:
+        if len(item) > 2 and item[2] is not None:
+            raise NotImplementedError(_CHUNKED_SLICE)
+        preps.append(_prepare_report(item[0], item[1]))
+
+    groups: dict[Optional[tuple], list[int]] = {}
+    for i, prep in enumerate(preps):
+        key = _report_group_key(prep) if solver == "batched" else None
+        groups.setdefault(key, []).append(i)
+
+    solve_s = 0.0
+    asm_s = 0.0
+    reports: list = [None] * len(preps)
+    for key, idxs in groups.items():
+        if key is None:
+            for i in idxs:
+                prep = preps[i]
+                t0 = perf_counter()
+                sh_tr = transient_two_tier(
+                    prep.lam_sw, prep.p12_sw, prep.sh_mu1, prep.sh_mu2,
+                    **prep.tr_kw)
+                transient = transient_two_tier(
+                    prep.pool_lam, prep.pool_p12, prep.pool_mu1,
+                    prep.pool_mu2, **prep.tr_kw)
+                eq = _point_equilibrium(prep)
+                t1 = perf_counter()
+                reports[i] = _finish_report(prep, eq, sh_tr, transient,
+                                            _onsets(sh_tr, transient))
+                t2 = perf_counter()
+                solve_s += t1 - t0
+                asm_s += t2 - t1
+            continue
+
+        group = [preps[i] for i in idxs]
+        p0 = group[0]
+        full = np.shape(p0.lam_sw)          # [S, W]
+        t0 = perf_counter()
+        kw = {k: v for k, v in p0.tr_kw.items() if k not in ("mode", "dt")}
+        # Stacked per-shard solve: [P, S, W].
+        sh_tr_b = fluid_two_tier_batched(
+            np.stack([p.lam_sw for p in group]),
+            np.stack([p.p12_sw for p in group]),
+            np.stack([np.broadcast_to(p.sh_mu1, full) for p in group]),
+            np.stack([np.broadcast_to(p.sh_mu2, full) for p in group]),
+            dt=p0.duration, device=device, **kw)
+        # Stacked pooled solve: [P, W].
+        tr_b = fluid_two_tier_batched(
+            np.stack([p.pool_lam for p in group]),
+            np.stack([p.pool_p12 for p in group]),
+            np.stack([np.broadcast_to(np.asarray(p.pool_mu1, float),
+                                      full[-1:]) for p in group]),
+            np.stack([np.broadcast_to(np.asarray(p.pool_mu2, float),
+                                      full[-1:]) for p in group]),
+            dt=p0.duration, device=device, **kw)
+        # Onset scans once over the whole stack.
+        sh_onsets_b = np.asarray(sh_tr_b.onset())            # [P, S]
+        pooled_onset_b = np.asarray(tr_b.onset())            # [P]
+        sh_meta_b = (np.asarray(sh_tr_b.metastable_onset())
+                     if sh_tr_b.metastable is not None else None)
+        pooled_meta_b = (np.asarray(tr_b.metastable_onset())
+                         if tr_b.metastable is not None else None)
+        # Stationary solves for the whole group: [P, S] + [P].
+        eq_b = _solve_equilibrium(
+            np.stack([np.full(p.spec.n_shards, p.spec.lam, float)
+                      for p in group]),
+            np.stack([p.mu1_v for p in group]),
+            np.stack([p.mu2_v for p in group]),
+            np.stack([p.p12_sh for p in group]),
+            np.asarray([p.spec.lam for p in group], float),
+            np.asarray([p.rates.mu1 for p in group], float),
+            np.asarray([p.rates.mu2 for p in group], float),
+            np.asarray([p.p12 for p in group], float),
+            k=p0.spec.k_servers, flow=p0.spec.flow,
+        )
+        t1 = perf_counter()
+        for j, i in enumerate(idxs):
+            onset_j = int(pooled_onset_b[j])
+            meta_j = (int(pooled_meta_b[j])
+                      if pooled_meta_b is not None else -1)
+            reports[i] = _finish_report(
+                preps[i], _Equilibrium(*(np.asarray(f)[j] for f in eq_b)),
+                _take_fluid(sh_tr_b, j), _take_fluid(tr_b, j),
+                (sh_onsets_b[j],
+                 sh_meta_b[j] if sh_meta_b is not None else None,
+                 onset_j if onset_j >= 0 else None,
+                 meta_j if meta_j >= 0 else None),
+            )
+        t2 = perf_counter()
+        solve_s += t1 - t0
+        asm_s += t2 - t1
+    if _prof is not None:
+        _prof["report_solve"] = _prof.get("report_solve", 0.0) + solve_s
+        _prof["assembly"] = _prof.get("assembly", 0.0) + asm_s
+    return reports
 
 
 def simulate(spec: SimSpec, trace=None, *, device=None) -> SimReport:

@@ -123,6 +123,18 @@ class StoreConfig:
             policy_idx=torch.tensor(idx, dtype=torch.int32, device=device),
         )
 
+    def static_config(self) -> "StoreConfig":
+        """The structural residue of this config: every field that shapes
+        the engine (array sizes, loop structure), with the per-row knobs
+        (:class:`StoreHyper` fields) reset to class defaults. Rows of
+        configs with equal ``static_config()`` share one kernel launch."""
+        defaults = {
+            f.name: f.default
+            for f in dataclasses.fields(StoreConfig)
+            if f.name in ("alpha", "beta", "threshold", "policy")
+        }
+        return dataclasses.replace(self, **defaults)
+
 
 class StoreState(NamedTuple):
     cache: CacheState

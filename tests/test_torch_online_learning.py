@@ -60,6 +60,23 @@ def test_weight_adjust_bit_exact_default_beta(seed):
             f"jax={x[bad[0]].tolist()} torch={y[bad[0]].tolist()}")
 
 
+@pytest.mark.parametrize("alpha", [0.1, 0.3, 0.9])
+@pytest.mark.parametrize("beta", [0.3, 0.6, 0.95])
+def test_weight_adjust_bit_exact_off_default_knobs(alpha, beta):
+    """Away from the default knobs: XLA computes ``alpha * mean`` as
+    ``(alpha * 1/3) * sum``, which differs from ``alpha * (sum * 1/3)``
+    in the last ulp unless alpha is a power of two."""
+    leaves = _reachable_states(3000, 11)
+    want = _jax_adjust(jnp.float32(alpha), jnp.float32(beta),
+                       jnp.float32(0.25))(*leaves)
+    got = tol.weight_adjust(
+        tol.OLState(*(torch.from_numpy(x) for x in leaves)),
+        tol.OLConfig(epoch_width=EW, alpha=alpha, beta=beta,
+                     threshold=0.25, pred_cap=EW))
+    np.testing.assert_array_equal(got.weights.numpy().view(np.int32),
+                                  np.asarray(want.weights).view(np.int32))
+
+
 def test_weight_adjust_per_row_knobs():
     """Per-row alpha/threshold tensors give each row its own update."""
     leaves = _reachable_states(6, 7)

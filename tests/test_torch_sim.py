@@ -84,7 +84,10 @@ def test_unported_routes_raise():
     spec = T.SimSpec(traffic=mix, n_shards=2)
     with pytest.raises(NotImplementedError, match="chunked-replay"):
         T.simulate(spec, device="cpu")
-    with pytest.raises(NotImplementedError):
-        T.batched_reports([])
+    # batched_reports is ported; per-tenant counters (a third item
+    # element) still need the chunked replay.
+    assert T.batched_reports([]) == []
+    with pytest.raises(NotImplementedError, match="chunked-replay"):
+        T.batched_reports([(spec, None, ("tenant counters",))])
     with pytest.raises(NotImplementedError):
         T.TenantCounters(("a",), None, None, None)
