@@ -24,7 +24,16 @@ after:
    the whole distance array;
 9. the sweep's megabatch at full width: 16 points, 8 cache signatures,
    one cache-scan launch of 128 rows, and the cache-scan kernel against
-   its plain version on those rows' first 2^17 steps.
+   its plain version on those rows' first 2^17 steps;
+10. serving at full width: mistral-nemo-12b in bf16 (weights from seed 0),
+   8 requests x 3,072-token prompts, prefill and 257 greedy decode steps
+   over the paged two-tier KV cache (tier 1 at half the pages, promotion
+   every 4 steps); the flash-attention, paged-attention and page-copy
+   kernels against their plain versions on inputs captured from that run;
+   and the whole path again with the plain versions selected, fed the
+   kernel run's tokens: the tier state equal integer for integer, the
+   learner's f32 weights bit for bit, the final hidden states and the
+   logprobs within a tolerance that two planted faults exceed.
 
 It prints:
 
@@ -71,6 +80,30 @@ VICTIM_ARRAYS = {"ws": 2, "lru": 1, "lfu": 1, "random": 0}
 DRAWS = {"ws": 1, "lru": 0, "lfu": 0, "random": 1}
 PUBLISHED_LAM_EFF = 86.6  # §V worked example
 PREFIX = 2**17  # full-size requests per row held against the plain version
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+# Phase 10: the full-width serving cell, and its tolerances.
+SERVE = dict(arch="mistral-nemo-12b", full=True, requests=8, prompt=3072,
+             new=258, hbm_fraction=0.5, promote_every=4)
+FLASH_TOL = 2e-2     # bf16 output, the bar of tests/test_kernels.py
+# Element by element, the flash kernel's bf16 output against the plain
+# version's: both round f32 results that differ only in summation order,
+# so they may differ by one bf16 step (2^-7 of the value at most), plus
+# the f32 summation noise where the output cancels to near zero.
+FLASH_ULP, FLASH_ABS = 2.0 ** -7, 1e-5
+FLASH_FAULT = 2.0 ** -5  # planted fault: the last query tile off by 1/32
+PAGED_REL_TOL = 1e-5  # f32 partials, against each field's largest magnitude
+# Kernel run vs plain run, in nats. The random 40-layer bf16 model
+# amplifies any change of summation order: the plain run against itself
+# with only the prefill attention reordered differs by about a tenth of a
+# nat (the phase measures this noise floor); in f32 the kernel run stays
+# within 1e-4 of the plain run (tests/test_torch_serving_cuda.py).
+LOGPROB_TOL = 0.5
+# Kernel run vs plain run: the final hidden state that each step unembeds,
+# |h - h_plain| / |h_plain| for each sequence and step. Planted faults
+# (the tier-2 partial dropped; one tier-2 page skipped) must exceed it.
+HIDDEN_TOL = 0.05
+PROFILE_STEPS = 4  # decode steps traced with torch.profiler
+CONTROL_STEPS = 24  # decode steps of the noise-floor run
 
 
 def log(msg: str) -> None:
@@ -223,13 +256,17 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import cache_scan as cs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import page_gather as pg
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import probe
     from repro_torch.kernels import reuse_distance as rd
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
-        libs = list(pool.map(lambda f: f(), (cs.build_cache_scan,
-                                             rd.build_reuse_distance,
-                                             probe.build_probe)))
+        libs = list(pool.map(lambda f: f(), (
+            cs.build_cache_scan, rd.build_reuse_distance, probe.build_probe,
+            fa.build_flash_attention, pa.build_paged_attention,
+            pg.build_page_copy)))
     dt = time.perf_counter() - t0
     for lib in libs:
         report = [ln.strip() for ln in lib.with_suffix(".log").read_text()
@@ -738,6 +775,479 @@ def phase_megabatch(full_ctr, l2_rate: float) -> dict:
                                    f"megabatch rows)")
 
 
+def _rel_err(got, want) -> float:
+    """Largest absolute difference over the largest magnitude of ``want``."""
+    den = float(want.double().abs().max().clamp(min=1e-30))
+    return float((got.double() - want.double()).abs().max()) / den
+
+
+def _flash_excess(got, want) -> float:
+    """Largest ``|got - want| / (FLASH_ULP |want| + FLASH_ABS)``, element
+    by element: at most 1 passes."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (FLASH_ULP * w.abs() + FLASH_ABS)).max())
+
+
+def _with_hidden(run_fn):
+    """``run_fn()`` (a serve) with the final hidden state that each step
+    unembeds recorded: ``(result, f32 [steps, B, d])``."""
+    from repro_torch.serving import engine as eng
+    hidden = []
+    unembed0 = eng.unembed_greedy
+
+    def hook(x, w):
+        hidden.append(x.float())
+        return unembed0(x, w)
+    eng.unembed_greedy = hook
+    try:
+        res = run_fn()
+    finally:
+        eng.unembed_greedy = unembed0
+    return res, torch.stack(hidden)
+
+
+def _hidden_err(h, ref) -> float:
+    """Largest ``|h - ref| / |ref|`` of one sequence's hidden state at one
+    step, over the steps both runs made."""
+    n = min(len(h), len(ref))
+    return float(((h[:n] - ref[:n]).norm(dim=-1)
+                  / ref[:n].norm(dim=-1)).max())
+
+
+def _flash_bound(q, k) -> dict:
+    """Causal GQA attention on q ``[B, H, S, hd]``: 4 flops a visible
+    (query, key) pair and head dim (QK^T and PV) at the bf16 tensor-core
+    rate; q, k, v read once and the output written once at HBM's rate."""
+    B, H, S, hd = q.shape
+    pairs = S * (S + 1) // 2
+    flops = 4 * B * H * pairs * hd
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return dict(_largest(dict(bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                              ops_ms=1e3 * flops / BF16_FLOPS_PER_S)),
+                flops=flops, bytes=nbytes)
+
+
+def _paged_bound(calls, page: int) -> dict:
+    """Decode attention over both tiers of one layer: every live K and V
+    row of the owned pages read once (each page from one tier), q read and
+    the partials written, at HBM's rate; 4 flops a live token, head dim
+    and query head at the f32 rate of the data sheet (67 TFLOP/s)."""
+    nbytes = flops = 0
+    for q, pool, slot, live in calls:
+        B, H, hd = q.shape
+        KV = pool.shape[3]
+        tok = torch.arange(slot.shape[1] * page, device=slot.device)
+        on = (slot >= 0).repeat_interleave(page, 1) & (
+            tok[None] < live.to(slot.device)[:, None])
+        n = int(on.sum())
+        nbytes += n * 2 * KV * hd * pool.element_size() + 4 * q.numel() \
+            + 4 * (B * H * hd + 2 * B * H)
+        flops += 4 * n * hd * H
+    return dict(_largest(dict(bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                              ops_ms=1e3 * flops / 67e12)),
+                bytes=nbytes, flops=flops)
+
+
+def _copy_bound(n_rows: int, row_bytes: int) -> dict:
+    """Each moved byte read once and written once, at HBM's rate."""
+    return dict(_largest(dict(bytes_ms=1e3 * 2 * n_rows * row_bytes
+                              / HBM_BYTES_PER_S)), bytes=2 * n_rows * row_bytes)
+
+
+def _profile_decode(cfg, params, run, S: dict, dev) -> None:
+    """Where a decode step's time goes: PROFILE_STEPS more steps of the
+    kernel run (its pools hold pages past the last token), after one
+    untraced step, under ``torch.profiler``; kernel time by group, its
+    share of the run's own (untraced) step time, kernel launches and
+    synchronizations a step. The profiler's own host cost makes the
+    traced steps far slower, so their wall time is not the step's."""
+    from repro_torch.serving import engine as eng
+    kv = run.state.kv
+    sc = eng.ServeConfig(max_seq=kv.page_slot.shape[1] * cfg.page_size,
+                         batch_local=S["requests"],
+                         hbm_fraction=S["hbm_fraction"])
+    dec = eng.make_decode_step(cfg, sc)
+    state = run.state
+    tok = torch.as_tensor(run.tokens[:, -1], device=dev)
+    state, (tok, _) = dec(params, state, tok)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PROFILE_STEPS):
+            state, (tok, _) = dec(params, state, tok)
+        torch.cuda.synchronize()
+    step_ms = 1e3 * run.decode_s / (S["new"] - 1)
+    groups = dict(paged=0.0, gemm=0.0, other=0.0)
+    kernels = syncs = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += 1
+            name = e.name.lower()
+            g = ("paged" if "paged_attention" in name else
+                 "gemm" if any(x in name for x in ("gemm", "nvjet", "cutlass",
+                                                   "sm90_xmma")) else "other")
+            groups[g] += e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
+        elif "Synchronize" in e.name:
+            syncs += 1
+    busy = sum(groups.values())
+    if groups["paged"] <= 0:
+        raise AssertionError("the profiled decode steps ran no paged kernel")
+    log(f"[serve, profile] {PROFILE_STEPS} decode steps after the run "
+        f"(torch.profiler): kernels {busy:.2f} ms a step, "
+        f"{100 * busy / step_ms:.1f}% of the run's {step_ms:.2f} ms step: "
+        f"paged attention {groups['paged']:.2f} ms, GEMMs "
+        f"{groups['gemm']:.2f} ms, other {groups['other']:.2f} ms; "
+        f"{kernels / PROFILE_STEPS:.0f} kernel launches and "
+        f"{syncs / PROFILE_STEPS:.1f} synchronizations a step")
+
+
+def phase_serve(dev=torch.device("cuda")) -> list:
+    """Serving at full width through ``repro_torch.launch.serve``; returns
+    the flash-attention, paged-attention and page-copy kernel entries."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import page_gather as pg
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain_versions
+    from repro_torch.kernels.ref import (attention_ref, page_copy_ref,
+                                         paged_attention_ref)
+    from repro_torch.launch import serve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    S = SERVE
+    t0 = time.perf_counter()
+    cfg, params = serve.build(S["arch"], full=S["full"], seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = cfg.total_params()
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (S["requests"], S["prompt"])).astype(np.int32)
+    steps = S["new"] - 1
+    L = cfg.n_layers
+
+    # Capture kernel inputs from the run: layer 0's prefill q/k/v, the
+    # last decode step's paged launches at the first and last layers, and
+    # the first prefill population into tier 2.
+    calls = dict(paged=0)
+    cap: dict = {}
+    flash0, paged0, copy0 = fa.flash_attention, pa.paged_attention, \
+        pg.page_copy
+    last = (steps - 1) * 2 * L
+
+    def flash_hook(q, k, v, **kw):
+        if "flash" not in cap:
+            cap["flash"] = (q.clone(), k.clone(), v.clone(), kw)
+        return flash0(q, k, v, **kw)
+
+    def paged_hook(q, pool, slot, live):
+        i = calls["paged"] - last
+        if i in (0, 1, 2 * L - 2, 2 * L - 1):
+            cap.setdefault("paged", []).append(
+                (q.clone(), pool, slot.clone(), live.clone()))
+        calls["paged"] += 1
+        return paged0(q, pool, slot, live)
+
+    def copy_hook(dst, src, di, si):
+        if "copy" not in cap:
+            cap["copy"] = (dst, src.clone(), di.clone(), si.clone())
+        return copy0(dst, src, di, si)
+
+    fa.flash_attention, pa.paged_attention, pg.page_copy = \
+        flash_hook, paged_hook, copy_hook
+    serve.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run, run_h = _with_hidden(lambda: serve.serve(
+            cfg, params, prompts, new=S["new"],
+            hbm_fraction=S["hbm_fraction"], promote_every=S["promote_every"]))
+    finally:
+        fa.flash_attention, pa.paged_attention, pg.page_copy = \
+            flash0, paged0, copy0
+    launches = serve.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(launches.values()):
+        raise AssertionError(f"a serving kernel never launched: {launches}")
+    if launches["flash_attention"] != L or \
+            launches["paged_attention"] != 2 * L * steps:
+        raise AssertionError(f"launches {launches}, want {L} flash and "
+                             f"{2 * L * steps} paged")
+    kv = run.state.kv
+    B = S["requests"]
+    if run.tokens.shape != (B, S["new"]) or not np.isfinite(
+            run.logprobs).all() or not ((run.tokens >= 0)
+                                        & (run.tokens < cfg.vocab)).all():
+        raise AssertionError("serve output is not finite tokens/logprobs "
+                             "of the expected shape")
+    if not (kv.lengths == S["prompt"] + steps).all():
+        raise AssertionError(f"lengths {kv.lengths.tolist()}")
+    t1, t2 = int(kv.t1_reads[0]), int(kv.t2_reads[0])
+    log(f"[serve] {cfg.name} ({n_params / 1e9:.2f} B params, bf16, seed 0; "
+        f"init {init_s:.1f} s), {B} requests x {S['prompt']} prompt tokens, "
+        f"{steps} decode steps, hbm_fraction {S['hbm_fraction']}: prefill "
+        f"{run.prefill_s:.3f} s, decode {run.decode_s:.3f} s "
+        f"({B * steps / run.decode_s:.1f} tok/s, "
+        f"{1e3 * run.decode_s / steps:.2f} ms/step); tier-1 page reads {t1}, "
+        f"tier-2 {t2}, evictions {int(kv.evictions[0])}, write-backs "
+        f"{int(kv.writebacks[0])}; OL weights {kv.ols.weights.tolist()}; "
+        f"launches {launches}; peak memory {peak_gb:.1f} GB")
+
+    # The whole path again with the plain versions selected, fed the
+    # kernel run's tokens.
+    forced = torch.as_tensor(run.tokens[:, :-1], device=dev)
+    serve.reset_launch_counts()
+    with plain_versions():
+        plain, plain_h = _with_hidden(lambda: serve.serve(
+            cfg, params, prompts, new=S["new"],
+            hbm_fraction=S["hbm_fraction"], promote_every=S["promote_every"],
+            forced=forced))
+    if any(serve.launch_counts().values()):
+        raise AssertionError("the plain run launched a kernel")
+    pkv = plain.state.kv
+    for f in ("page_slot", "t2_slot", "lengths", "t", "t1_reads", "t2_reads",
+              "evictions", "writebacks"):
+        if not torch.equal(getattr(kv, f), getattr(pkv, f)):
+            raise AssertionError(f"kernel run != plain run in {f}")
+    for x, y in zip(kv.meta + kv.ols, pkv.meta + pkv.ols):
+        if not torch.equal(x, y):
+            raise AssertionError("kernel run != plain run in the metadata "
+                                 "or the learner")
+    if kv.key != pkv.key or not torch.equal(
+            kv.ols.weights.view(torch.int32), pkv.ols.weights.view(torch.int32)):
+        raise AssertionError("kernel run != plain run in the key / weights")
+    lp_err = float(np.abs(run.logprobs - plain.logprobs).max())
+    h_err = _hidden_err(run_h, plain_h)
+    # The noise floor: the plain path again, the first CONTROL_STEPS decode
+    # steps, with only the prefill attention's summation order changed
+    # (blockwise attention in 512-blocks instead of one softmax).
+    from repro_torch.models.attention import blockwise_attention
+    from repro_torch.serving import engine as eng
+    n_ctl = min(CONTROL_STEPS, steps)
+    n = n_ctl + 1
+    short = dict(new=n, hbm_fraction=S["hbm_fraction"],
+                 promote_every=S["promote_every"], forced=forced[:, :n_ctl],
+                 max_seq=kv.page_slot.shape[1] * cfg.page_size)
+    flash_plain = fa.flash_attention
+    fa.flash_attention = lambda q, k, v, **kw: blockwise_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        **kw).transpose(1, 2)
+    try:
+        with plain_versions():
+            ctl, ctl_h = _with_hidden(
+                lambda: serve.serve(cfg, params, prompts, **short))
+    finally:
+        fa.flash_attention = flash_plain
+    floor = float(np.abs(ctl.logprobs - plain.logprobs[:, :n]).max())
+    head = float(np.abs(run.logprobs[:, :n] - plain.logprobs[:, :n]).max())
+    h_floor = _hidden_err(ctl_h, plain_h)
+    h_head = _hidden_err(run_h[:n], plain_h)
+    # Planted faults through the same comparison, on the kernel path and
+    # the first n_ctl steps: the tier-2 partial dropped from the merge, and
+    # the tier-2 launches skipping page 0 of every sequence (a prompt page
+    # that lives only in tier 2). Each must fail the bar.
+    comb0, paged_k = eng.combine_partials, pa.paged_attention
+    seen = dict(n=0)
+
+    def skip_page0(q, pool, slot, live):
+        seen["n"] += 1
+        if seen["n"] % 2 == 0:   # the engine launches tier 1, then tier 2
+            slot = slot.clone()
+            slot[:, 0] = -1
+        return paged_k(q, pool, slot, live)
+    faults = {}
+    for name, patch in (
+            ("tier-2 partial dropped",
+             lambda: setattr(eng, "combine_partials",
+                             lambda parts: comb0(parts[:1]))),
+            ("page 0 skipped in tier 2",
+             lambda: setattr(pa, "paged_attention", skip_page0))):
+        patch()
+        try:
+            bad, bad_h = _with_hidden(
+                lambda: serve.serve(cfg, params, prompts, **short))
+        finally:
+            eng.combine_partials, pa.paged_attention = comb0, paged_k
+        faults[name] = (
+            _hidden_err(bad_h, plain_h),
+            float(np.abs(bad.logprobs - plain.logprobs[:, :n]).max()))
+        del bad, bad_h
+    log(f"[serve, plain path] the same run with the plain versions, "
+        f"teacher-forced on the kernel run's tokens: prefill "
+        f"{plain.prefill_s:.3f} s, decode {plain.decode_s:.3f} s; tier state "
+        f"and learner equal (integers exact, f32 weights bit for bit); "
+        f"final hidden state |h - h_plain| / |h_plain| largest "
+        f"{h_err:.3e} over all steps, {h_head:.3e} over the first {n_ctl} "
+        f"(tolerance {HIDDEN_TOL}); noise floor (plain vs plain with "
+        f"blockwise prefill attention, first {n_ctl} steps) {h_floor:.3e}; "
+        f"planted faults (kernel path, first {n_ctl} steps): "
+        + "; ".join(f"{k} {v[0]:.3e} (logprobs {v[1]:.3e})"
+                    for k, v in faults.items())
+        + f"; logprobs max |diff| {lp_err:.3e} over all steps, {head:.3e} "
+        f"over the first {n_ctl} (tolerance {LOGPROB_TOL}), noise floor "
+        f"{floor:.3e}; greedy tokens equal in "
+        f"{int((plain.tokens == run.tokens).sum())} of {run.tokens.size}")
+    if not h_err <= HIDDEN_TOL:
+        raise AssertionError(f"hidden states differ by {h_err} > "
+                             f"{HIDDEN_TOL}")
+    if not lp_err <= LOGPROB_TOL:
+        raise AssertionError(f"logprobs differ by {lp_err} > {LOGPROB_TOL}")
+    for name, (e, _) in faults.items():
+        if not e > HIDDEN_TOL:
+            raise AssertionError(f"planted fault '{name}' passes the "
+                                 f"comparison: {e} <= {HIDDEN_TOL}")
+    del plain, pkv, ctl, run_h, plain_h, ctl_h
+
+    # Flash attention: layer 0's prefill q/k/v, all 8 sequences.
+    q, k, v, kw = cap["flash"]
+    fa.flash_attention_cuda(q, k, v, **kw)  # warm-up
+    f_ms, got = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                        reps=3)
+    fp_ms, want = cuda_ms(lambda: attention_ref(q, k, v, **kw))
+    f_err = float((got.float() - want.float()).abs().max())
+    f_rel = float(((got.float() - want.float()).abs()
+                   / (want.float().abs() + 1)).max())
+    f_exc = _flash_excess(got, want)
+    # A planted fault: the last 64-query tile of every head off by 1/32.
+    bad = got.clone()
+    bad[:, :, -64:] = (bad[:, :, -64:].float() * (1 + FLASH_FAULT)).to(
+        bad.dtype)
+    bad_exc = _flash_excess(bad, want)
+    bad_rel = float(((bad.float() - want.float()).abs()
+                     / (want.float().abs() + 1)).max())
+    del bad
+    log(f"[serve, flash vs plain] max |diff| {f_err:.3e}, |diff| / (|plain| "
+        f"+ 1) {f_rel:.3e} (tolerance {FLASH_TOL}), |diff| / ({FLASH_ULP:g} "
+        f"|plain| + {FLASH_ABS:g}) {f_exc:.3f} (tolerance 1); planted fault "
+        f"(last query tile x (1 + {FLASH_FAULT:g})): {bad_exc:.3f} and "
+        f"{bad_rel:.3e}")
+    if not (f_rel <= FLASH_TOL and f_exc <= 1):
+        raise AssertionError(f"flash kernel != plain: {f_err} (rel {f_rel}, "
+                             f"element-wise {f_exc})")
+    if not bad_exc > 1:
+        raise AssertionError("the flash check passes a planted fault")
+    sdpa = dict(is_causal=True, enable_gqa=True)
+    torch.nn.functional.scaled_dot_product_attention(q, k, v, **sdpa)
+    f_lib, _ = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, **sdpa), reps=3)
+    fb = _flash_bound(q, k)
+    log(f"[serve, flash vs plain] layer 0's prefill, q {list(q.shape)} "
+        f"(strided [B, S, H, hd] views), causal: max |diff| {f_err:.3e}, "
+        f"element-wise {f_exc:.3f} of its bar; kernel "
+        f"{f_ms:.2f} ms, plain {fp_ms:.1f} ms, scaled_dot_product_attention "
+        f"{f_lib:.3f} ms, {fmt_bound(fb)}")
+    del got, want
+
+    # Paged attention: the last decode step's tier-1 and tier-2 launches at
+    # the first and the last layer (the pools hold the state of that step:
+    # nothing wrote those layers after it).
+    pcalls = cap["paged"]
+    p_err = 0.0
+    for i, (qq, pool, slot, live) in enumerate(pcalls):
+        got = pa.paged_attention_cuda(qq, pool, slot, live)
+        want = paged_attention_ref(qq, pool, slot, live)
+        for g, w, name in zip(got, want, ("acc", "m", "l")):
+            e = _rel_err(g, w)
+            p_err = max(p_err, e)
+            if not e <= PAGED_REL_TOL:
+                raise AssertionError(f"paged kernel != plain in {name} "
+                                     f"(call {i}): {e}")
+    first = pcalls[:2]
+    p_ms, _ = cuda_ms(lambda: [pa.paged_attention_cuda(*c) for c in first],
+                      reps=10)
+    pp_ms, _ = cuda_ms(lambda: [paged_attention_ref(*c) for c in first],
+                       reps=3)
+    pb = _paged_bound(first, cfg.page_size)
+    log(f"[serve, paged vs plain] last decode step, layers 0 and {L - 1}, "
+        f"tier 1 and tier 2: largest |diff| / largest |plain| of acc, m, l "
+        f"{p_err:.3e} (tolerance {PAGED_REL_TOL}); layer 0, both tiers: "
+        f"kernel {p_ms:.4f} ms, plain {pp_ms:.3f} ms, {fmt_bound(pb)}")
+
+    # Page copy, byte for byte on the full-width pools: the first prefill
+    # population (layer 0 into tier 2), a whole-slot write-back (tier-1
+    # slots of resident pages down to their tier-2 slots) and a whole-slot
+    # promotion (tier-2 pages into two tier-1 slots a hand-made state
+    # frees).
+    dst, src, di, si = cap["copy"]
+    pool1, pool2 = kv.pool1, kv.pool2
+    res = (kv.page_slot >= 0).reshape(-1).nonzero().reshape(-1)[:8]
+    wb_dst = kv.t2_slot.reshape(-1)[res]
+    wb_src = kv.page_slot.reshape(-1)[res]
+    non = (kv.page_slot < 0).reshape(-1).nonzero().reshape(-1)[:2]
+    pr_dst = kv.page_slot.reshape(-1)[res[:2]]
+    pr_src = kv.t2_slot.reshape(-1)[non]
+    cases = (("prefill population", pool2, dst, src, di, si),
+             ("write-back", pool2, pool2, pool1, wb_dst, wb_src),
+             ("promotion", pool1, pool1, pool2, pr_dst, pr_src))
+    for name, whole, d, s_, i_d, i_s in cases:
+        off = (d.data_ptr() - whole.data_ptr()) // whole.element_size()
+        outs = []
+        for fn in (pg.page_copy_cuda, page_copy_ref):
+            buf = whole.clone()
+            view = buf.view(-1)[off:].as_strided(d.shape, d.stride())
+            fn(view, s_, i_d, i_s)
+            torch.cuda.synchronize()
+            outs.append(buf)
+        if not torch.equal(outs[0].view(torch.uint8).view(-1),
+                           outs[1].view(torch.uint8).view(-1)):
+            raise AssertionError(f"page copy kernel != plain ({name})")
+        del outs, buf
+    row_bytes = dst[0].numel() * dst.element_size()
+    live = ((di >= 0) & (si >= 0))
+    buf = pool2.clone()
+    view = buf.view(-1)[(dst.data_ptr() - pool2.data_ptr())
+                        // pool2.element_size():].as_strided(dst.shape,
+                                                              dst.stride())
+    c_ms, _ = cuda_ms(lambda: pg.page_copy_cuda(view, src, di, si), reps=5)
+    cp_ms, _ = cuda_ms(lambda: page_copy_ref(view, src, di, si))
+    ldi = di[live].long().to(dev)
+    lsi = si[live].long().to(dev)
+
+    def library():
+        view[ldi] = src[lsi]
+    library()
+    c_lib, _ = cuda_ms(library, reps=5)
+    del buf, view
+    cb = _copy_bound(int(live.sum()), row_bytes)
+    log(f"[serve, page copy vs plain] prefill population (layer 0, "
+        f"{int(live.sum())} pages of {row_bytes} B into tier 2), a "
+        f"whole-slot write-back ({len(res)} slots of "
+        f"{pool1[0].numel() * 2} B) and a whole-slot promotion (2 slots): "
+        f"equal byte for byte; prefill population: kernel {c_ms:.3f} ms, "
+        f"plain {cp_ms:.3f} ms, dst[di] = src[si] {c_lib:.3f} ms, "
+        f"{fmt_bound(cb)}")
+
+    _profile_decode(cfg, params, run, S, dev)
+
+    def entry(name, src_file, replaces, **kw):
+        return dict(name=name, route="cuda",
+                    source=f"src/repro_torch/kernels/csrc/{src_file}",
+                    replaces=replaces, launches=launches[name], **kw)
+    return [
+        entry("flash_attention", "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:77", max_abs_err=f_err,
+              ms=f_ms, plain_ms=fp_ms, bound_ms=fb["bound_ms"],
+              bound_by=fb["bound_by"], bound_terms=fb["bound_terms"],
+              library_ms=f_lib,
+              shape=f"q {list(q.shape)}, k/v {list(k.shape)}, causal, bf16 "
+                    f"(layer 0 of the prefill)"),
+        entry("paged_attention", "paged_attention.cu",
+              "src/repro/kernels/paged_attention.py:89", max_abs_err=p_err,
+              ms=p_ms, plain_ms=pp_ms, bound_ms=pb["bound_ms"],
+              bound_by=pb["bound_by"], bound_terms=pb["bound_terms"],
+              library_ms=None, max_abs_err_kind="relative to the largest "
+              "|plain| of each field",
+              shape=f"both tiers of layer 0 at the last decode step, "
+                    f"q {list(first[0][0].shape)}, pools "
+                    f"{list(pool1.shape)} / {list(pool2.shape)} bf16"),
+        entry("page_copy", "page_copy.cu",
+              "src/repro/kernels/page_gather.py:37", max_abs_err=0.0,
+              ms=c_ms, plain_ms=cp_ms, bound_ms=cb["bound_ms"],
+              bound_by=cb["bound_by"], bound_terms=cb["bound_terms"],
+              library_ms=c_lib,
+              shape=f"{int(live.sum())} rows of {row_bytes} B into one layer "
+                    f"of tier 2 (prefill population)"),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -755,6 +1265,7 @@ def main() -> int:
     mrc = phase_mrc(full_size_spec().replace(
         **{"store.policy": "lru", "n_windows": 1}))
     mega = phase_megabatch(full_ctr, l2_rate)
+    serving = phase_serve()
     cache_scan = dict(
         name="cache_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/cache_scan.cu",
@@ -765,7 +1276,7 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/reuse_distance.cu",
         replaces="src/repro/kernels/reuse_distance.py:142", library_ms=None,
         **mrc)
-    print(json.dumps({"kernels": [cache_scan, reuse]}), flush=True)
+    print(json.dumps({"kernels": [cache_scan, reuse, *serving]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,4 @@
-"""Carry reference engine state into the port.
+"""Carry reference state into the port: engine state and model parameters.
 
 This system has no weights: its learned state is the tier-1
 ``StoreState`` — cache tags / valid / dirty / freq / ts, the online
@@ -8,6 +8,9 @@ words). The reference keeps it as a JAX pytree; flattened to numpy
 (``[np.asarray(x) for x in jax.tree_util.tree_leaves(state)]``), it comes
 across here, on any device, as the port's :class:`StoreState` — so a run
 can resume in the port where the reference left off.
+
+A served model's parameters come across with :func:`params_from_numpy`,
+so that the port and the reference compute the same model.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from repro_torch.core.prefetch import PrefetchState
 from repro_torch.storage.cache_state import CacheState
 from repro_torch.storage.tiered_store import StoreHyper, StoreState
 
-__all__ = ["store_state_from_numpy", "store_hyper_from_numpy"]
+__all__ = ["store_state_from_numpy", "store_hyper_from_numpy",
+           "params_from_numpy"]
 
 _GROUPS = ((CacheState, (torch.int32, torch.bool, torch.bool, torch.int32,
                          torch.int32)),
@@ -68,3 +72,21 @@ def store_hyper_from_numpy(alpha, beta, threshold, policy_idx, *,
         policy_idx=torch.tensor(np.asarray(policy_idx, np.int32),
                                    dtype=torch.int32, device=device),
     )
+
+
+def params_from_numpy(tree, *, device=None):
+    """The port's parameters from the reference's parameter pytree with
+    numpy leaves (``jax.tree.map(np.asarray, params)``): the same nested
+    dicts and lists (``blocks`` stacked ``[reps, ...]`` per pattern
+    position, ``tail`` unstacked), each leaf a tensor of the leaf's dtype
+    on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device=device)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device=device) for v in tree]
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bits
+        return torch.from_numpy(arr.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)

@@ -33,6 +33,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.threefry import uniform_f32
+
 __all__ = [
     "EXPERTS",
     "N_EXPERTS",
@@ -41,6 +43,9 @@ __all__ = [
     "init_ol",
     "probabilities",
     "choose_expert",
+    "propose_victims",
+    "record_predictions",
+    "note_miss",
     "pow_table",
     "fma_f32",
     "weight_adjust",
@@ -109,11 +114,48 @@ def choose_expert(ol: OLState, policy_idx=None) -> torch.Tensor:
     return torch.where(idx >= 0, idx.clamp(0, N_EXPERTS - 1), learned)
 
 
+def propose_victims(cache, key, pinned=None) -> torch.Tensor:
+    """Each expert's victim line, int32 ``[E]`` = ``[lru, lfu, random]``,
+    for one cache (unbatched ``CacheState``): LRU = oldest timestamp, LFU =
+    lowest frequency, Random = the largest of one uniform per line drawn
+    from ``key`` (two uint32 words, as ``jax.random.uniform(key, [n])``
+    draws them), over the valid lines not ``pinned``; first index on
+    ties."""
+    ok = cache.valid if pinned is None else (cache.valid & ~pinned)
+    big = torch.iinfo(torch.int32).max
+    ts = torch.where(ok, cache.ts, big)
+    fq = torch.where(ok, cache.freq, big)
+    noise = uniform_f32(key[0], key[1], cache.tags.shape[-1],
+                        device=cache.tags.device)
+    rnd = torch.where(ok, noise, torch.full_like(noise, -1.0))
+    return torch.stack([ts.argmin(), fq.argmin(), rnd.argmax()]).to(
+        torch.int32)
+
+
+def record_predictions(ol: OLState, cfg: OLConfig,
+                       victim_pages: torch.Tensor) -> OLState:
+    """Append each expert's proposed victim page to its prediction ring."""
+    slot = (ol.pred_n % cfg.pred_cap).long()
+    pred = ol.pred.clone()
+    pred[torch.arange(N_EXPERTS), slot] = victim_pages.to(torch.int32)
+    return ol._replace(pred=pred, pred_n=ol.pred_n + 1)
+
+
+def note_miss(ol: OLState, page) -> OLState:
+    """Count the miss and any expert mispredictions it reveals (Algorithm
+    2's ``p in pred[i]`` scan, done online)."""
+    hit_pred = (ol.pred == page).any(dim=-1)
+    return ol._replace(mispred=ol.mispred + hit_pred.to(torch.int32),
+                       epoch_misses=ol.epoch_misses + 1)
+
+
 def pow_table(beta, epoch_width: int) -> torch.Tensor:
     """``pw[b, k] = beta[b] ** k`` for ``k = 0..epoch_width``, f32, on the
     host. Each entry is one single-element ``torch.pow`` call: that path
     rounds like the reference's f32 ``power``, while the vectorized path
-    of a wide call may differ in the last ulp."""
+    of a wide call may differ in the last ulp. Results below the smallest
+    normal f32 are flushed to zero, as XLA-CPU flushes them (reached only
+    at large exponents, the serving learner's)."""
     beta = torch.as_tensor(beta, dtype=torch.float32).reshape(-1).cpu()
     cache: dict = {}
     rows = []
@@ -123,6 +165,9 @@ def pow_table(beta, epoch_width: int) -> torch.Tensor:
             cache[b] = torch.cat([
                 torch.pow(bt, torch.tensor([float(k)], dtype=torch.float32))
                 for k in range(epoch_width + 1)])
+            tiny = torch.finfo(torch.float32).tiny
+            cache[b] = torch.where(cache[b].abs() < tiny,
+                                   torch.zeros_like(cache[b]), cache[b])
         rows.append(cache[b])
     return torch.stack(rows)
 

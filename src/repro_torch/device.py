@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "to_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -21,3 +21,13 @@ def resolve_device(device=None) -> torch.device:
                 "default; pass device='cpu' to run the plain PyTorch path")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``; a host tensor goes to the card through pinned
+    memory, asynchronously on the current stream, so the host does not
+    wait for the card's queue to drain."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

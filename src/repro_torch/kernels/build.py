@@ -8,6 +8,7 @@ flags; ptxas's register and shared memory report is kept beside it as
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
@@ -15,7 +16,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_library"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_library",
+           "load_library", "check_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -58,3 +60,24 @@ def build_library(source: Path) -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib
+
+
+def load_library(source: Path, launch: str, argtypes: list):
+    """Build ``source`` and load it with ``ctypes``: ``launch`` is its C
+    launch function (returning a CUDA error code) with ``argtypes``, and
+    ``<stem>_error_string`` turns a code into text."""
+    lib = ctypes.CDLL(str(build_library(source)))
+    fn = getattr(lib, launch)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{source.stem}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(lib, source: Path, code: int) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if code != 0:
+        msg = getattr(lib, f"{source.stem}_error_string")(code).decode()
+        raise RuntimeError(f"{source.stem} kernel launch failed: {msg}")

@@ -1,5 +1,12 @@
 """Plain PyTorch versions of the port's hand kernels.
 
+- :func:`attention_ref`: causal / sliding-window GQA attention, the golden
+  of ``csrc/flash_attention.cu``.
+- :func:`paged_attention_ref`: the decode-attention partial over the
+  pages of one pool reached through a page table, the golden of
+  ``csrc/paged_attention.cu``.
+- :func:`page_copy_ref`: ``dst[dst_idx[i]] = src[src_idx[i]]``, the
+  golden of ``csrc/page_copy.cu``.
 - :func:`reuse_distance_ref`: the reuse-distance (Mattson LRU stack
   distance) dominance count, the golden of ``csrc/reuse_distance.cu``.
 - :func:`cache_scan_ref`: the fused tier-1 cache scan, the golden of
@@ -19,6 +26,7 @@ outcomes are stacked and folded into the counters afterwards
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -26,7 +34,8 @@ import torch
 from repro_torch.core import online_learning as _ol
 from repro_torch.kernels import threefry
 
-__all__ = ["DIST_INF", "reuse_distance_ref", "fused_cache_step",
+__all__ = ["attention_ref", "paged_attention_ref", "page_copy_ref",
+           "DIST_INF", "reuse_distance_ref", "fused_cache_step",
            "fused_fold", "cache_scan_ref", "NOISE_CHUNK"]
 
 # Reuse distance of a first-ever access (compulsory miss): larger than any
@@ -36,6 +45,84 @@ DIST_INF = 2**31 - 1
 # Steps per batch of Random-expert draws when no shared table is given.
 NOISE_CHUNK = 256
 _I32_MIN, _I32_SPAN = -(2**31), 2**32
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Softmax attention in f32, one sequence at a time (so the ``[H, Sq,
+    Skv]`` scores of one sequence are the largest temporary). q ``[B, H,
+    Sq, hd]``, k/v ``[B, KV, Skv, hd]`` (any strides) -> ``[B, H, Sq,
+    hd]`` in q's dtype. Key ``j`` is visible to query ``i`` if ``i >= j``
+    (causal) and ``j > i - window`` (window)."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    qpos = torch.arange(Sq, device=dev)[:, None]
+    kpos = torch.arange(Skv, device=dev)[None, :]
+    mask = None
+    if causal:
+        mask = qpos >= kpos
+        if window is not None:
+            mask &= kpos > qpos - window
+    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    for b in range(B):
+        qf = q[b].to(torch.float32).reshape(KV, G, Sq, hd)
+        s = torch.einsum("kgqh,ksh->kgqs", qf, k[b].to(torch.float32))
+        s = s / math.sqrt(hd)
+        if mask is not None:
+            s = torch.where(mask, s, torch.full_like(s, -1e30))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("kgqs,ksh->kgqh", p, v[b].to(torch.float32))
+        out[b] = o.reshape(H, Sq, hd).to(q.dtype)
+    return out
+
+
+def paged_attention_ref(q: torch.Tensor, pool: torch.Tensor,
+                        page_slot: torch.Tensor, lengths: torch.Tensor):
+    """Partial decode attention over the pages of one pool.
+
+    q ``[B, H, hd]``; pool ``[slots, page, 2, KV, hd]`` (any slot stride,
+    e.g. one layer of a ``[slots, Lp, page, 2, KV, hd]`` pool);
+    ``page_slot [B, n_pages]`` int32 (``-1`` = skip the page); ``lengths
+    [B]`` int32: token ``t`` is live if ``t < lengths[b]``. Returns f32
+    ``(acc [B, H, hd], m [B, H], l [B, H])``; a row with no live token has
+    ``m = -1e30``, ``l = 0``, ``acc = 0``."""
+    B, H, hd = q.shape
+    n_pages = page_slot.shape[1]
+    page, KV = pool.shape[1], pool.shape[3]
+    G = H // KV
+    ps = page_slot.to(pool.device).long()
+    data = pool[ps.clamp(min=0)]             # [B, n_pages, page, 2, KV, hd]
+    k = data[..., 0, :, :].reshape(B, n_pages * page, KV, hd)
+    v = data[..., 1, :, :].reshape(B, n_pages * page, KV, hd)
+    tok = torch.arange(n_pages * page, device=pool.device)
+    valid = (ps >= 0).repeat_interleave(page, dim=1)
+    valid &= tok[None, :] < lengths.to(pool.device)[:, None]
+    qf = q.to(torch.float32).reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,btkh->bkgt", qf, k.to(torch.float32))
+    s = s / math.sqrt(hd)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, -1e30))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(valid[:, None, None], p, torch.zeros_like(p))
+    l = p.sum(-1)
+    acc = torch.einsum("bkgt,btkh->bkgh", p, v.to(torch.float32))
+    return acc.reshape(B, H, hd), m.reshape(B, H), l.reshape(B, H)
+
+
+def page_copy_ref(dst: torch.Tensor, src: torch.Tensor,
+                  dst_idx: torch.Tensor, src_idx: torch.Tensor
+                  ) -> torch.Tensor:
+    """Tier movement in place: ``dst[dst_idx[i]] = src[src_idx[i]]`` for
+    each pair where neither index is ``-1``, in pair order. ``dst`` and
+    ``src`` may be row-strided views (one layer of a pool); returns
+    ``dst``."""
+    for di, si in zip(dst_idx.tolist(), src_idx.tolist()):
+        if di >= 0 and si >= 0:
+            dst[di] = src[si]
+    return dst
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.build import CSRC, build_library
+from repro_torch.kernels.build import CSRC, build_library, check_launch, \
+    load_library
 from repro_torch.kernels.ref import DIST_INF, reuse_distance_ref
 
 __all__ = [
@@ -72,13 +73,9 @@ def build_reuse_distance():
 
 def _library():
     if _LIB[0] is None:
-        lib = ctypes.CDLL(str(build_reuse_distance()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.reuse_distance_launch.argtypes = [p, p, p, i, i, p]
-        lib.reuse_distance_launch.restype = i
-        lib.reuse_distance_error_string.argtypes = [i]
-        lib.reuse_distance_error_string.restype = ctypes.c_char_p
-        _LIB[0] = lib
+        _LIB[0] = load_library(SOURCE, "reuse_distance_launch",
+                               [p, p, p, i, i, p])
     return _LIB[0]
 
 
@@ -140,9 +137,7 @@ def reuse_distance_cuda(prev: torch.Tensor,
     err = lib.reuse_distance_launch(
         prev.data_ptr(), valid.data_ptr(), out.data_ptr(), S, L,
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("reuse_distance kernel launch failed: "
-                           + lib.reuse_distance_error_string(err).decode())
+    check_launch(lib, SOURCE, err)
     _LAUNCHES[0] += 1
     return out
 

@@ -1,0 +1,87 @@
+"""Shared model layers on one card.
+
+Numerics as the reference: parameters and activations in the model's
+dtype, normalization, RoPE, softmax and logsumexp in f32, products
+accumulated in f32. A product of two bf16 (or f32) tensors through
+``torch.matmul`` accumulates in f32 on the card and on the CPU, which is
+what the reference's ``preferred_element_type=f32`` followed by a cast to
+the activation dtype computes. The dense projections and the
+unembedding stay ``torch.matmul``: the reference computes them outside any
+Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["dense", "rms_norm", "rope_tables", "apply_rope", "embed",
+           "unembed_greedy", "mlp_swiglu"]
+
+_F32 = torch.float32
+# Vocabulary rows of the unembedding converted to f32 at a time.
+_UNEMBED_CHUNK = 16384
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with f32 accumulation, output in x.dtype."""
+    return torch.matmul(x, w)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    xf = x.to(_F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(_F32))).to(x.dtype)
+
+
+def rope_tables(positions: torch.Tensor, hd: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RoPE's ``(cos, sin)`` for ``positions [..., S]``: f32 ``[..., S, 1,
+    hd / 2]``, broadcasting over heads. Every layer of one step shares
+    them."""
+    half = hd // 2
+    exponent = -torch.arange(0, half, dtype=_F32,
+                             device=positions.device) / half
+    freq = torch.pow(theta, exponent)  # a Python base: no host-to-card copy
+    ang = positions[..., :, None].to(_F32) * freq      # [..., S, half]
+    return torch.cos(ang)[..., :, None, :], torch.sin(ang)[..., :, None, :]
+
+
+def apply_rope(x: torch.Tensor, rope: tuple) -> torch.Tensor:
+    """RoPE over the last dim of x ``[..., S, H, hd]``, with ``rope`` the
+    :func:`rope_tables` of its positions ``[..., S]``."""
+    half = x.shape[-1] // 2
+    cos, sin = rope
+    x1, x2 = x[..., :half].to(_F32), x[..., half:].to(_F32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """tokens [...] int -> [..., d]."""
+    return emb[tokens.long()]
+
+
+def unembed_greedy(x: torch.Tensor, emb: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy next token: x [B, d] -> (token [B] int32, logprob [B] f32).
+
+    The logits are f32 products of x and the unembedding, built a chunk of
+    the vocabulary at a time (so no f32 copy of the whole table is held).
+    Ties go to the lowest id, as the reference's and ``torch.argmax``."""
+    xf = x.to(_F32)
+    logits = torch.cat([
+        torch.matmul(xf, emb[v0:v0 + _UNEMBED_CHUNK].to(_F32).t())
+        for v0 in range(0, emb.shape[0], _UNEMBED_CHUNK)], dim=-1)
+    m = torch.max(logits, dim=-1).values
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+    se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+    return token, m - torch.log(se)
+
+
+def mlp_swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
+    g = dense(x, w_gate)
+    u = dense(x, w_up)
+    h = F.silu(g.to(_F32)).to(x.dtype) * u
+    return torch.matmul(h, w_down)

@@ -1,0 +1,141 @@
+"""Declarative parameter definitions: shapes and init, for one card.
+
+Every leaf is described by a :class:`ParamDef` (its per-layer shape and
+how it is initialized). Stacked-layer leaves get a leading layer dim. The
+parameter tree has the reference's structure: ``embed``, ``final_norm``,
+``blocks`` (one dict per pattern position, each leaf stacked
+``[reps, ...]``), ``tail`` (unstacked) and, unless tied, ``unembed``.
+
+The reference's mesh and FSDP machinery (``MeshSizes``, ``fsdp_dims``,
+partition specs) has no counterpart here: the port serves on one card.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+
+__all__ = ["ParamDef", "pad_vocab", "block_defs", "model_layout",
+           "build_defs", "init_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]  # per-layer (unstacked) shape
+    init: str = "normal"    # normal | zeros
+    scale: float = 0.02
+
+
+def pad_vocab(v: int, multiple: int = 256) -> int:
+    return -(-v // multiple) * multiple
+
+
+def _attn_defs(cfg: ModelConfig) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": ParamDef((d, H * hd), scale=d ** -0.5),
+        "wk": ParamDef((d, KV * hd), scale=d ** -0.5),
+        "wv": ParamDef((d, KV * hd), scale=d ** -0.5),
+        "wo": ParamDef((H * hd, d), scale=(H * hd) ** -0.5),
+        "norm": ParamDef((d,), init="zeros"),
+    }
+
+
+def _mlp_defs(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": ParamDef((d, f), scale=d ** -0.5),
+        "w_up": ParamDef((d, f), scale=d ** -0.5),
+        "w_down": ParamDef((f, d), scale=f ** -0.5),
+        "norm2": ParamDef((d,), init="zeros"),
+    }
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "MoE blocks are not ported yet (ROADMAP item 11.2)")
+    if cfg.family == "audio" or cfg.enc_dec:
+        raise NotImplementedError(
+            "the encoder-decoder (whisper) model is not ported yet "
+            "(ROADMAP item 11.2)")
+
+
+def block_defs(kind: str, cfg: ModelConfig) -> dict:
+    """Parameter defs for one block of the given kind (attention blocks
+    with a dense SwiGLU FFN; the recurrent and SSD blocks wait for their
+    kernels, ROADMAP item 11.2)."""
+    _check_supported(cfg)
+    if not kind.startswith("attn"):
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet (ROADMAP item 11.2, "
+            "with its scan kernel)")
+    return {**_attn_defs(cfg), **_mlp_defs(cfg)}
+
+
+def model_layout(cfg: ModelConfig) -> tuple[int, tuple[str, ...]]:
+    """(n_superblock_repeats, tail_kinds)."""
+    p = len(cfg.block_pattern)
+    reps = cfg.n_layers // p
+    tail = cfg.layer_kinds()[reps * p:]
+    return reps, tail
+
+
+def build_defs(cfg: ModelConfig) -> dict:
+    """Full nested ParamDef tree (mirrors the params tree structure)."""
+    _, tail = model_layout(cfg)
+    vp = pad_vocab(cfg.vocab)
+    tree: dict = {
+        "embed": ParamDef((vp, cfg.d_model)),
+        "final_norm": ParamDef((cfg.d_model,), init="zeros"),
+        "blocks": [block_defs(k, cfg) for k in cfg.block_pattern],
+        "tail": [block_defs(k, cfg) for k in tail],
+    }
+    if not cfg.tie_embeddings:
+        tree["unembed"] = ParamDef((vp, cfg.d_model))
+    return tree
+
+
+def _leaf_init(d: ParamDef, shape, dtype, gen: torch.Generator,
+               device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    # One stacked layer at a time, so the f32 draw stays one layer large.
+    rows = out.reshape((-1,) + d.shape) if len(shape) > len(d.shape) else (
+        out[None])
+    for row in rows:
+        row.copy_(torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                              device=device) * d.scale)
+    return out
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters: normal x scale per leaf (zeros for the norms), in
+    ``cfg.param_dtype``, drawn from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (``None`` = the card). The draws are not JAX's:
+    the same seed gives other numbers than ``repro.models.params.
+    init_params`` (carry the reference's parameters over with
+    :func:`repro_torch.convert.params_from_numpy` where both must compute
+    the same model)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    dtype = getattr(torch, cfg.param_dtype)
+    reps, _ = model_layout(cfg)
+    defs = build_defs(cfg)
+
+    def leaf(d: ParamDef, n_stack: int = 0):
+        shape = ((n_stack,) if n_stack else ()) + d.shape
+        return _leaf_init(d, shape, dtype, gen, device)
+
+    out = {k: leaf(d) for k, d in defs.items()
+           if k not in ("blocks", "tail")}
+    out["blocks"] = [{k: leaf(d, reps) for k, d in blk.items()}
+                     for blk in defs["blocks"]]
+    out["tail"] = [{k: leaf(d) for k, d in blk.items()}
+                   for blk in defs["tail"]]
+    return out

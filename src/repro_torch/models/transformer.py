@@ -1,0 +1,101 @@
+"""Model trunk for attention-only dense models on one card.
+
+A model is a cycled ``block_pattern`` whose parameters are stacked per
+pattern position (``[reps, ...]``) plus an unstacked tail, with an
+embedding and an unembedding. Each block is pre-norm self-attention (RoPE,
+GQA) and a SwiGLU FFN. The prefill runs its attention through the flash
+kernel (:mod:`repro_torch.kernels.flash_attention`: the kernel on the
+card, its plain version on the CPU); :func:`fwd_hidden`, the independent
+full forward that decode is checked against, runs the plain
+:func:`~repro_torch.models.attention.blockwise_attention`, as the
+reference's does.
+
+The reference's MoE, RG-LRU, SSD, encoder and VLM-prefix blocks are not
+ported yet (ROADMAP item 11.2); :func:`repro_torch.models.params.
+block_defs` raises for them.
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterator, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import params as pm
+from repro_torch.models.attention import blockwise_attention
+from repro_torch.models.layers import (apply_rope, dense, embed, mlp_swiglu,
+                                       rms_norm, rope_tables)
+
+__all__ = ["layers", "apply_block", "fwd_hidden"]
+
+
+def layers(params: dict, cfg: ModelConfig) -> Iterator[tuple]:
+    """``(kind, layer params, attention layer index)`` for every layer in
+    order: the stacked superblocks, then the tail."""
+    attn_pp = tuple(i for i, k in enumerate(cfg.block_pattern)
+                    if k.startswith("attn"))
+    reps, tail = pm.model_layout(cfg)
+    for r in range(reps):
+        for i, kind in enumerate(cfg.block_pattern):
+            p = {k: w[r] for k, w in params["blocks"][i].items()}
+            yield kind, p, r * len(attn_pp) + attn_pp.index(i)
+    for i, kind in enumerate(tail):
+        li = reps * len(attn_pp) + sum(1 for k in tail[:i]
+                                       if k.startswith("attn"))
+        yield kind, params["tail"][i], li
+
+
+def _flash(q, k, v, *, causal: bool, window: Optional[int]):
+    """The flash-attention wrapper on the model's ``[B, S, H, hd]`` layout
+    (transposed views, no copies)."""
+    o = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=causal, window=window)
+    return o.transpose(1, 2)
+
+
+def _self_attention(x, p, cfg: ModelConfig, rope, *, kind: str,
+                    attend: Callable):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    q = dense(h, p["wq"]).reshape(B, S, H, hd)
+    k = dense(h, p["wk"]).reshape(B, S, KV, hd)
+    v = dense(h, p["wv"]).reshape(B, S, KV, hd)
+    q = apply_rope(q, rope)
+    k = apply_rope(k, rope)
+    window = cfg.window if kind in ("attn_swa", "attn_local") else None
+    o = attend(q, k, v, causal=True, window=window)
+    return dense(o.reshape(B, S, H * hd), p["wo"]), (k, v)
+
+
+def _ffn(x, p, cfg: ModelConfig):
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return mlp_swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def apply_block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
+                attend: Callable = _flash):
+    """One attention block (``rope``: the positions' :func:`~repro_torch.
+    models.layers.rope_tables`). Returns ``(x, (k, v))``: the new residual
+    stream and the block's RoPE'd keys and values ``[B, S, KV, hd]`` (the
+    paged pools' layout)."""
+    if not kind.startswith("attn"):
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet (ROADMAP item 11.2)")
+    delta, kv = _self_attention(x, p, cfg, rope, kind=kind, attend=attend)
+    x = x + delta
+    return x + _ffn(x, p, cfg), kv
+
+
+def fwd_hidden(params: dict, tokens: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Token ids ``[B, S]`` -> final (normed) hidden states ``[B, S, d]``,
+    with blockwise attention."""
+    tokens = torch.as_tensor(tokens).to(params["embed"].device)
+    x = embed(tokens, params["embed"])
+    rope = rope_tables(torch.arange(x.shape[1], device=x.device)[None, :],
+                       cfg.head_dim, cfg.rope_theta)
+    for kind, p, _ in layers(params, cfg):
+        x, _ = apply_block(kind, x, p, cfg, rope, attend=blockwise_attention)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -1,0 +1,209 @@
+"""Serving engine: prefill + paged two-tier decode on one card.
+
+The decode step is the paper's fig. 2 "client thread": it serves the
+batch against the tier-1 cache and forwards page misses to tier 2 in line;
+:func:`repro_torch.serving.kvpool.promote_pages` is the "IO thread", run
+between steps; the OL learner adjusts the eviction weights every epoch as
+in §III-A.
+
+On the card each step launches, per attention layer, the paged-attention
+kernel twice (tier 1 over the resident pages, tier 2 over the pages that
+are not resident) and merges the two partials with
+:func:`~repro_torch.models.attention.combine_partials`; the prefill runs
+the flash kernel once per layer and moves its pages with the page-copy
+kernel, which also writes dirty evicted pages back once a step. The
+reference reads both tiers in one pass (``read_pages`` +
+``attention_partial``); the split sums in another order, so the two agree
+to a tolerance, not bit for bit.
+
+Scope: attention-only dense models with full attention, one card
+(``page_axes=()``), KV in the parameters' dtype. Everything else raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import online_learning as ol
+from repro_torch.device import to_device
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.models import params as pm
+from repro_torch.models.attention import Partial, combine_partials
+from repro_torch.models.layers import (apply_rope, dense, embed, mlp_swiglu,
+                                       rms_norm, rope_tables, unembed_greedy)
+from repro_torch.models.transformer import apply_block, layers
+from repro_torch.serving import kvpool as kvp
+from repro_torch.serving.kvpool import KVSpec, PagedKV
+
+__all__ = ["ServeConfig", "DecodeState", "make_kv_spec", "init_decode_state",
+           "make_decode_step", "make_prefill_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_seq: int
+    batch_local: int
+    page_axes: tuple[str, ...] = ()  # one card: pages are not sharded
+    hbm_fraction: float = 0.5   # tier-1 capacity as fraction of pages
+    n_promote: int = 2
+    kv_dtype: str = "auto"      # "auto" (= param dtype)
+
+
+class DecodeState(NamedTuple):
+    kv: PagedKV
+
+
+def check_supported(cfg: ModelConfig, sc: ServeConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not serve."""
+    if sc.page_axes:
+        raise NotImplementedError(
+            "page sharding over several cards is not ported yet (ROADMAP "
+            "item 11.1); use page_axes=()")
+    if sc.kv_dtype == "int8":
+        raise NotImplementedError(
+            "int8 KV is not ported yet (ROADMAP item 11.1)")
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE serving is not ported yet (ROADMAP "
+                                  "item 11.1)")
+    if cfg.enc_dec or cfg.family == "audio" or cfg.vlm_prefix:
+        raise NotImplementedError(
+            "encoder-decoder and VLM-prefix serving are not ported yet "
+            "(ROADMAP item 11.1)")
+    for kind in cfg.block_pattern:
+        if kind in ("rglru", "ssd"):
+            raise NotImplementedError(
+                f"{kind} blocks are not ported yet (ROADMAP item 11.2, with "
+                "their scan kernels)")
+        if kind in ("attn_swa", "attn_local"):
+            raise NotImplementedError(
+                "windowed attention reads are not ported yet (ROADMAP item "
+                "11.1)")
+
+
+def make_kv_spec(cfg: ModelConfig, sc: ServeConfig) -> KVSpec:
+    """Static pool geometry for an (arch, serve shape) cell on one card
+    (pages not sharded; full attention: every page is visible to
+    decode)."""
+    attn_pp = kvp.n_attn_layers(cfg)
+    reps, tail = pm.model_layout(cfg)
+    n_attn = reps * len(attn_pp) + sum(1 for k in tail
+                                       if k.startswith("attn"))
+    n_pages = -(-sc.max_seq // cfg.page_size)
+    owned = sc.batch_local * n_pages + 1
+    return KVSpec(
+        b_local=sc.batch_local, n_pages=n_pages, page_size=cfg.page_size,
+        n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        layers_per_slot=max(n_attn, 1),
+        hbm_slots=max(2, int(owned * sc.hbm_fraction)), t2_slots=owned + 1,
+        dtype=cfg.param_dtype if sc.kv_dtype == "auto" else sc.kv_dtype)
+
+
+def init_decode_state(cfg: ModelConfig, sc: ServeConfig, seed: int = 0, *,
+                      device=None) -> DecodeState:
+    """Empty pools on ``device`` (``None`` = the card)."""
+    check_supported(cfg, sc)
+    return DecodeState(kv=kvp.init_paged_kv(make_kv_spec(cfg, sc), seed,
+                                            device=device))
+
+
+def _unembedding(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    tied = cfg.tie_embeddings or "unembed" not in params
+    return params["embed" if tied else "unembed"]
+
+
+def _decode_attention(x, p, cfg: ModelConfig, pools, index, tables, li,
+                      rope):
+    """One attention block at decode time over both tiers."""
+    B, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    q = dense(h, p["wq"]).reshape(B, 1, H, hd)
+    k_new = dense(h, p["wk"]).reshape(B, 1, KV, hd)
+    v_new = dense(h, p["wv"]).reshape(B, KV, hd)
+    q = apply_rope(q, rope)[:, 0]
+    k_new = apply_rope(k_new, rope)[:, 0]
+    kvp.write_token_kv(pools[0], (k_new, v_new), index, li)
+    slot1, slot2, live = tables
+    part1 = Partial(*pa.paged_attention(q, pools[0][:, li], slot1, live))
+    part2 = Partial(*pa.paged_attention(q, pools[1][:, li], slot2, live))
+    o = combine_partials([part1, part2])           # [B, H, hd] f32
+    return dense(o.to(x.dtype).reshape(B, H * hd), p["wo"])
+
+
+def _decode_ffn(x, p, cfg: ModelConfig):
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return mlp_swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def make_decode_step(cfg: ModelConfig, sc: ServeConfig):
+    """The decode step ``(params, DecodeState, tokens [B]) -> (DecodeState,
+    (next_tokens [B] int32, logprobs [B] f32))``, on the parameters'
+    device. The pools are updated in place."""
+    check_supported(cfg, sc)
+    spec = make_kv_spec(cfg, sc)
+    cfg_ol = ol.OLConfig()
+    # The learner's beta ** losses table, as wide as an epoch's most
+    # mispredictions: every expert can mispredict once per missed page.
+    pw = ol.pow_table(cfg_ol.beta,
+                      cfg_ol.epoch_width * spec.total_pages)
+
+    def step(params, state: DecodeState, tokens):
+        dev = params["embed"].device
+        kv, plan = kvp.alloc_step(state.kv, spec, cfg_ol, pw)
+        pools = (kv.pool1, kv.pool2)
+        kvp.write_back_evicted(pools, plan)
+        index = kvp.token_index(plan, kv.lengths, spec, dev)
+        # Tier 1 reads the resident pages, tier 2 the pages that are not
+        # resident; both count the token just written.
+        slot2 = torch.where(kv.page_slot < 0, kv.t2_slot, -1)
+        tables = tuple(to_device(t, dev)
+                       for t in (kv.page_slot, slot2, kv.lengths + 1))
+        rope = rope_tables(to_device(kv.lengths, dev)[:, None], cfg.head_dim,
+                           cfg.rope_theta)
+        x = embed(to_device(torch.as_tensor(tokens), dev), params["embed"])
+        for _, p, li in layers(params, cfg):
+            x = x + _decode_attention(x, p, cfg, pools, index, tables, li,
+                                      rope)
+            x = x + _decode_ffn(x, p, cfg)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        tok, logprob = unembed_greedy(x, _unembedding(params, cfg))
+        kv = kv._replace(lengths=kv.lengths + 1, t=kv.t + 1)
+        return DecodeState(kv=kv), (tok, logprob)
+
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
+    """The prefill ``(params, tokens [B, S]) -> (DecodeState, (first_token,
+    logprob))``: a full forward over the prompt that fills both pools and
+    sets the tier-1 residency (the newest pages resident)."""
+    check_supported(cfg, sc)
+    spec = make_kv_spec(cfg, sc)
+
+    def step(params, tokens):
+        dev = params["embed"].device
+        tokens = torch.as_tensor(tokens).to(dev)
+        B, S = tokens.shape
+        x = embed(tokens, params["embed"])
+        kv = kvp.init_paged_kv(spec, device=dev)
+        kv = kvp.prefill_residency(kv, spec,
+                                   torch.full((B,), S, dtype=torch.int32))
+        rope = rope_tables(torch.arange(S, device=dev)[None, :],
+                           cfg.head_dim, cfg.rope_theta)
+        pad_s = (-S) % spec.page_size
+        for kind, p, li in layers(params, cfg):
+            x, (k, v) = apply_block(kind, x, p, cfg, rope)
+            if pad_s:
+                k = F.pad(k, (0, 0, 0, 0, 0, pad_s))
+                v = F.pad(v, (0, 0, 0, 0, 0, pad_s))
+            kvp.prefill_write((kv.pool1, kv.pool2), kv, spec, li, k, v)
+        x = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+        tok, logprob = unembed_greedy(x, _unembedding(params, cfg))
+        return DecodeState(kv=kv), (tok, logprob)
+
+    return step

@@ -1,0 +1,380 @@
+"""Paged two-tier KV cache: the paper's tier-1 / tier-2 store on one card.
+
+- **cache line / page**: ``page_size`` consecutive tokens of one sequence's
+  KV across every attention layer; the unit of residency and of tier
+  movement.
+- **tier 1**: a fixed pool of page slots on the card (``pool1``). Its
+  states (tags / valid / dirty / freq / ts) mirror §III and live apart
+  from the data, on the host, as the paper keeps its cache states in CPU
+  RAM and its data on NVMe: the allocation, eviction and learner logic
+  runs in host tensors once a step, and only its plan reaches the card.
+- **tier 2**: the full backing pool (``pool2``), a second array on the
+  card. The cache is *inclusive* and *write-back*: dirty tier-1 pages are
+  copied down on eviction.
+- **OL eviction**: :mod:`repro_torch.core.online_learning` runs over the
+  page metadata exactly as in the reference: every eviction records all
+  experts' proposals, a tier-2 read of a recently evicted page is a
+  misprediction, the weights adjust every epoch.
+
+Pool layout and slot rules are the reference's (``[slots + 1, layers,
+page, 2, KV, hd]`` for tier 1, with its scratch row; ``[t2_slots, ...]``
+for tier 2, the last row its scratch). The pools are updated in place
+(the reference returns new arrays). All tier movement goes through the
+page-copy kernel (:mod:`repro_torch.kernels.page_gather`), and masked
+writes skip (``-1``) where the reference scatters them to the scratch rows;
+so the scratch rows stay zero here.
+
+One card only: the page table is not sharded, so the card owns every
+page and each page's tier-2 slot is its flat id; windowed reads
+(``read_pages`` > 0) and int8 pools are not ported (ROADMAP item 11.1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import online_learning as ol
+from repro_torch.device import resolve_device, to_device
+from repro_torch.kernels import threefry
+from repro_torch.kernels import page_gather as pg
+from repro_torch.storage.cache_state import CacheState, init_cache
+
+__all__ = ["KVSpec", "PagedKV", "AllocPlan", "init_paged_kv", "alloc_step",
+           "write_back_evicted", "token_index", "write_token_kv", "read_pages",
+           "prefill_residency", "prefill_write", "promote_pages",
+           "n_attn_layers"]
+
+_I32 = torch.int32
+
+
+def n_attn_layers(cfg: ModelConfig) -> tuple[int, ...]:
+    """Indices of attention positions within the block pattern."""
+    return tuple(
+        i for i, k in enumerate(cfg.block_pattern) if k.startswith("attn"))
+
+
+@dataclasses.dataclass(frozen=True)
+class KVSpec:
+    """Static geometry of the paged pool."""
+
+    b_local: int           # sequences
+    n_pages: int           # pages per sequence (max_seq / page_size)
+    page_size: int
+    n_kv: int
+    head_dim: int
+    layers_per_slot: int   # attention layers stored per page (stacked dim)
+    hbm_slots: int         # tier-1 capacity (pages)
+    t2_slots: int          # tier-2 capacity (>= pages)
+    read_pages: int = 0    # pages visible to decode attention (0 = all)
+    window: int = 0        # sliding-window size in tokens (0 = full)
+    dtype: str = "bfloat16"
+
+    @property
+    def total_pages(self) -> int:
+        return self.b_local * self.n_pages
+
+
+class PagedKV(NamedTuple):
+    """Paged KV state: the pools on the card, the rest on the host."""
+
+    pool1: torch.Tensor      # [hbm_slots + 1, Lp, page, 2, KV, hd]
+    pool2: torch.Tensor      # [t2_slots, Lp, page, 2, KV, hd]
+    meta: CacheState         # over hbm_slots; tags = flat page id
+    page_slot: torch.Tensor  # int32 [B, n_pages] tier-1 slot or -1
+    t2_slot: torch.Tensor    # int32 [B, n_pages] tier-2 slot
+    ols: ol.OLState
+    lengths: torch.Tensor    # int32 [B] tokens present
+    t: torch.Tensor          # int32 [1] step counter
+    key: tuple               # PRNG key of the Random expert: 2 uint32 words
+    t2_reads: torch.Tensor   # int32 [1] pages read from tier 2
+    t1_reads: torch.Tensor   # int32 [1] pages read from tier 1
+    # Counters the reference does not keep:
+    evictions: torch.Tensor  # int32 [1] tier-1 pages evicted
+    writebacks: torch.Tensor  # int32 [1] dirty evicted pages copied down
+
+
+class AllocPlan(NamedTuple):
+    cur_slot: torch.Tensor    # [B] tier-1 slot of each current page
+    evict_slot: torch.Tensor  # [B] slot evicted to make room (-1 = none)
+    evict_t2: torch.Tensor    # [B] tier-2 slot of the evicted page
+    writeback: torch.Tensor   # [B] bool — evicted page dirty?
+
+
+def init_paged_kv(spec: KVSpec, seed: int = 0, *, device=None) -> PagedKV:
+    """Empty pools on ``device`` (``None`` = the card); metadata on the
+    host."""
+    if spec.dtype == "int8":
+        raise NotImplementedError(
+            "int8 KV pools are not ported yet (ROADMAP item 11.1)")
+    device = resolve_device(device)
+    dt = getattr(torch, spec.dtype)
+    shape1 = (spec.hbm_slots + 1, spec.layers_per_slot, spec.page_size, 2,
+              spec.n_kv, spec.head_dim)
+    shape2 = (spec.t2_slots,) + shape1[1:]
+    return PagedKV(
+        pool1=torch.zeros(shape1, dtype=dt, device=device),
+        pool2=torch.zeros(shape2, dtype=dt, device=device),
+        meta=init_cache(spec.hbm_slots),
+        page_slot=torch.full((spec.b_local, spec.n_pages), -1, dtype=_I32),
+        t2_slot=torch.arange(spec.total_pages, dtype=_I32).reshape(
+            spec.b_local, spec.n_pages),
+        ols=ol.init_ol(ol.OLConfig()),
+        lengths=torch.zeros(spec.b_local, dtype=_I32),
+        t=torch.zeros(1, dtype=_I32),
+        key=threefry.prng_key(seed),
+        t2_reads=torch.zeros(1, dtype=_I32),
+        t1_reads=torch.zeros(1, dtype=_I32),
+        evictions=torch.zeros(1, dtype=_I32),
+        writebacks=torch.zeros(1, dtype=_I32),
+    )
+
+
+def _readable(kv: PagedKV, spec: KVSpec) -> torch.Tensor:
+    p_range = torch.arange(spec.n_pages)[None, :]
+    return p_range * spec.page_size < kv.lengths[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Metadata phase: allocation + OL eviction decisions, once per decode step,
+# on the host.
+# ---------------------------------------------------------------------------
+
+
+def alloc_step(kv: PagedKV, spec: KVSpec, cfg_ol: ol.OLConfig,
+               pw: torch.Tensor) -> tuple[PagedKV, AllocPlan]:
+    """Allocate tier-1 slots for each sequence's current page; evict via
+    the OL policy when full; update LRU/LFU metadata and the OL learner.
+    ``pw`` is the learner's ``pow_table`` (as wide as the most
+    mispredictions an epoch can count)."""
+    B, NP, P = spec.b_local, spec.n_pages, spec.page_size
+    page_idx = (kv.lengths // P).tolist()
+    flat = kv.lengths // P + torch.arange(B, dtype=_I32) * NP
+    boundary = (kv.lengths % P == 0).tolist()
+    t = int(kv.t[0])
+
+    tags, valid, dirty, freq, ts = (x.clone() for x in kv.meta)
+    page_slot = kv.page_slot.clone()
+    ols, key = kv.ols, kv.key
+    cur_slot = torch.zeros(B, dtype=_I32)
+    evict_slot = torch.full((B,), -1, dtype=_I32)
+    evict_t2 = torch.full((B,), -1, dtype=_I32)
+    writeback = torch.zeros(B, dtype=torch.bool)
+    # Every sequence's current page is pinned (single writer: in-flight
+    # lines are not eviction candidates).
+    pinned = torch.isin(tags, flat) & valid
+
+    for b in range(B):
+        pi = page_idx[b]
+        do_alloc = boundary[b] and int(page_slot[b, pi]) < 0
+        key, vkey = threefry.split(key)
+        free = ~valid
+        has_free = bool(free.any())
+        slot = int(free.to(torch.uint8).argmax())
+        if do_alloc and not has_free:  # evict
+            meta = CacheState(tags, valid, dirty, freq, ts)
+            proposals = ol.propose_victims(meta, vkey, pinned)
+            ols = ol.record_predictions(ols, cfg_ol, tags[proposals.long()])
+            slot = int(proposals[int(ol.choose_expert(ols))])
+            v_b, v_p = divmod(int(tags[slot]), NP)
+            page_slot[v_b, v_p] = -1
+            evict_slot[b] = slot
+            evict_t2[b] = kv.t2_slot[v_b, v_p]
+            writeback[b] = dirty[slot]
+        if do_alloc:
+            tags[slot], valid[slot], dirty[slot] = int(flat[b]), True, True
+            freq[slot], ts[slot] = 1, t
+            page_slot[b, pi] = slot
+            pinned[slot] = True
+        cur_slot[b] = page_slot[b, pi]
+
+    # The current page receives this step's token KV (write-back cache:
+    # mark it dirty so eviction copies it down to tier 2).
+    dirty[cur_slot[cur_slot >= 0].long()] = True
+
+    # Touch the resident pages read this step (LRU ts / LFU freq); count
+    # tier-2 reads as misses for the learner.
+    readable = _readable(kv, spec)
+    resident = page_slot >= 0
+    read_res = readable & resident
+    read_miss = readable & ~resident
+    slot_hit = torch.zeros(spec.hbm_slots, dtype=torch.bool)
+    slot_hit[page_slot.clamp(0, spec.hbm_slots - 1)[read_res].long()] = True
+    freq = freq + slot_hit.to(_I32)
+    ts = torch.where(slot_hit, torch.full_like(ts, t), ts)
+    n_miss = int(read_miss.sum())
+    miss_pages = (torch.arange(NP)[None, :]
+                  + torch.arange(B)[:, None] * NP)[read_miss]
+    hit_pred = (ols.pred[None] == miss_pages[:, None, None].to(_I32)).any(
+        -1).sum(0, dtype=_I32)
+    ols = ols._replace(mispred=ols.mispred + hit_pred,
+                       epoch_misses=ols.epoch_misses + n_miss)
+    if (t + 1) % cfg_ol.epoch_width == 0:
+        ols = ol.weight_adjust(ols, cfg_ol, pw)
+
+    kv = kv._replace(
+        meta=CacheState(tags, valid, dirty, freq, ts), ols=ols, key=key,
+        page_slot=page_slot, t2_reads=kv.t2_reads + n_miss,
+        t1_reads=kv.t1_reads + int(read_res.sum()),
+        evictions=kv.evictions + int((evict_slot >= 0).sum()),
+        writebacks=kv.writebacks + int(writeback.sum()))
+    plan = AllocPlan(cur_slot=cur_slot, evict_slot=evict_slot,
+                     evict_t2=evict_t2, writeback=writeback)
+    return kv, plan
+
+
+# ---------------------------------------------------------------------------
+# Data phase on the card.
+# ---------------------------------------------------------------------------
+
+
+def write_back_evicted(pools, plan: AllocPlan) -> bool:
+    """Copy every dirty evicted page down to tier 2, whole slots (all
+    layers) at once, in one page-copy launch; returns whether it launched.
+
+    The reference writes back layer by layer inside the layer loop, each
+    layer before that layer's token lands. One copy before the loop moves
+    the same bytes: ``alloc_step`` pins each freshly allocated slot, so no
+    sequence writes this step's token into a slot another sequence evicts.
+    """
+    pool1, pool2 = pools
+    live = plan.writeback & (plan.evict_slot >= 0)
+    if not bool(live.any()):
+        return False
+    pg.page_copy(pool2, pool1, plan.evict_t2[live], plan.evict_slot[live])
+    return True
+
+
+def token_index(plan: AllocPlan, lengths: torch.Tensor, spec: KVSpec,
+                device) -> tuple:
+    """Where this step's tokens land, on ``device``, once a step: each
+    sequence's current tier-1 slot (clipped at 0, as the reference does)
+    and the offset in its page."""
+    slot = plan.cur_slot.clamp(min=0)
+    off = lengths % spec.page_size
+    return tuple(to_device(x.long(), device) for x in (slot, off))
+
+
+def write_token_kv(pool1: torch.Tensor, kv_new, index: tuple,
+                   li: int) -> None:
+    """Write this step's K/V of layer ``li`` (``k_new``, ``v_new``: [B, KV,
+    hd]) into the current tier-1 pages at ``index`` (:func:`token_index`),
+    in place."""
+    slot, off = index
+    pool1[:, li][slot, off] = torch.stack(kv_new, dim=1).to(pool1.dtype)
+
+
+def read_pages(pools, kv: PagedKV, spec: KVSpec, li: int):
+    """Gather the readable KV of layer ``li`` (the reference's single-pass
+    read): ``(k, v, valid)``, ``[B, n_pages * page, KV, hd]`` with the
+    mask of live tokens — resident pages from tier 1, the others from
+    their tier-2 home. The decode step reads the two tiers
+    with the paged-attention kernel instead; this is the plain read the
+    tests hold it against."""
+    pool1, pool2 = pools
+    B, NP, P = spec.b_local, spec.n_pages, spec.page_size
+    dev = pool1.device
+    slot = kv.page_slot.to(dev).long()
+    t2 = kv.t2_slot.to(dev).long()
+    data = torch.where((slot >= 0)[..., None, None, None, None],
+                       pool1[slot.clamp(min=0), li], pool2[t2, li])
+    k = data[..., 0, :, :].reshape(B, NP * P, spec.n_kv, spec.head_dim)
+    v = data[..., 1, :, :].reshape(B, NP * P, spec.n_kv, spec.head_dim)
+    tok = torch.arange(NP * P, device=dev).reshape(NP, P)
+    valid = tok[None] <= kv.lengths.to(dev)[:, None, None]
+    return k, v, valid.reshape(B, NP * P)
+
+
+# ---------------------------------------------------------------------------
+# Prefill: residency init + bulk page writes.
+# ---------------------------------------------------------------------------
+
+
+def prefill_residency(kv: PagedKV, spec: KVSpec,
+                      prompt_len: torch.Tensor) -> PagedKV:
+    """Tier-1 residency after a prefill of ``prompt_len`` tokens: the most
+    recent pages become resident, older ones live only in tier 2.
+    Sets meta / page_slot / lengths (the pools are filled per layer by
+    :func:`prefill_write`)."""
+    B, NP = spec.b_local, spec.n_pages
+    p_range = torch.arange(NP)[None, :]
+    prompt_len = prompt_len.to(_I32).cpu()
+    in_prompt = p_range * spec.page_size < prompt_len[:, None]
+    cand = in_prompt.reshape(-1)
+    key = (p_range * B + torch.arange(B)[:, None]).reshape(-1)
+    big = torch.iinfo(_I32).max
+    sort_key = torch.where(cand, -key, torch.full_like(key, big))
+    order = torch.argsort(sort_key, stable=True)
+    n_res = min(spec.hbm_slots, B * NP)
+    chosen = order[:n_res]
+    is_cand = cand[chosen]
+    slots = torch.arange(n_res, dtype=_I32)
+    page_slot = torch.full((B * NP,), -1, dtype=_I32)
+    page_slot[chosen] = torch.where(is_cand, slots, -1).to(_I32)
+    flat_ids = chosen.to(_I32)
+    H = spec.hbm_slots
+    tags = torch.full((H,), -1, dtype=_I32)
+    tags[:n_res] = torch.where(is_cand, flat_ids, -1).to(_I32)
+    valid = torch.zeros(H, dtype=torch.bool)
+    valid[:n_res] = is_cand
+    freq = torch.zeros(H, dtype=_I32)
+    freq[:n_res] = is_cand.to(_I32)
+    ts = torch.zeros(H, dtype=_I32)
+    ts[:n_res] = torch.where(is_cand, flat_ids % NP, 0).to(_I32)
+    meta = CacheState(tags=tags, valid=valid,
+                      dirty=torch.zeros(H, dtype=torch.bool),  # clean
+                      freq=freq, ts=ts)
+    return kv._replace(meta=meta, page_slot=page_slot.reshape(B, NP),
+                       lengths=prompt_len, t=torch.zeros(1, dtype=_I32))
+
+
+def prefill_write(pools, kv: PagedKV, spec: KVSpec, li: int,
+                  k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write one layer's prefill KV (``[B, S, KV, hd]``, S a page multiple)
+    into both pools with two page-copy launches: every page into
+    tier 2, the resident ones into tier 1 too."""
+    pool1, pool2 = pools
+    B, S = k.shape[:2]
+    npg = S // spec.page_size
+    data = torch.stack([k, v], dim=2).to(pool1.dtype).reshape(
+        B * npg, spec.page_size, 2, spec.n_kv, spec.head_dim)
+    src = torch.arange(B * npg, dtype=_I32)
+    pg.page_copy(pool2[:, li], data, kv.t2_slot[:, :npg].reshape(-1), src)
+    pg.page_copy(pool1[:, li], data, kv.page_slot[:, :npg].reshape(-1), src)
+
+
+# ---------------------------------------------------------------------------
+# IO-thread analog: promotion of hot tier-2 pages between decode steps.
+# ---------------------------------------------------------------------------
+
+
+def promote_pages(kv: PagedKV, spec: KVSpec, n_promote: int = 2) -> PagedKV:
+    """Promote up to ``n_promote`` readable-but-nonresident pages into
+    free tier-1 slots ("prefetching is performed only if there are empty
+    slots"): the choice on the host, the copies of whole slots in one
+    page-copy launch."""
+    cand = (_readable(kv, spec) & (kv.page_slot < 0)).reshape(-1)
+    tags, valid, dirty, freq, ts = (x.clone() for x in kv.meta)
+    page_slot = kv.page_slot.clone().reshape(-1)
+    t = int(kv.t[0])
+    dst, src = [], []
+    for _ in range(n_promote):
+        free = ~valid
+        slot = int(free.to(torch.uint8).argmax())
+        nxt = int((cand & (page_slot < 0)).to(torch.uint8).argmax())
+        if not (bool(free.any()) and bool(cand[nxt])
+                and int(page_slot[nxt]) < 0):
+            continue
+        b, p = divmod(nxt, spec.n_pages)
+        dst.append(slot)
+        src.append(int(kv.t2_slot[b, p]))
+        tags[slot], valid[slot], dirty[slot] = nxt, True, False
+        freq[slot], ts[slot] = 1, t
+        page_slot[nxt] = slot
+    if dst:
+        pg.page_copy(kv.pool1, kv.pool2, torch.tensor(dst, dtype=_I32),
+                  torch.tensor(src, dtype=_I32))
+    return kv._replace(meta=CacheState(tags, valid, dirty, freq, ts),
+                       page_slot=page_slot.reshape(kv.page_slot.shape))

@@ -107,6 +107,54 @@ def test_pow_table_matches_xla_power():
     np.testing.assert_array_equal(table.view(np.int32), want.view(np.int32))
 
 
+@pytest.mark.parametrize("beta", [0.1, 0.3, 0.5, 0.7, 0.9, 0.95])
+def test_pow_table_large_exponents_flush_like_xla(beta):
+    """The serving learner's losses reach far past ``epoch_width``: up to
+    k = 1,999, where ``beta ** k`` becomes subnormal, the table equals
+    XLA's f32 power bit for bit (XLA-CPU flushes subnormals to zero)."""
+    ks = np.arange(2000, dtype=np.float32)
+    want = np.asarray(jax.jit(jnp.power)(jnp.float32(beta), jnp.asarray(ks)))
+    table = tol.pow_table(beta, 1999)[0].numpy()
+    np.testing.assert_array_equal(table.view(np.int32), want.view(np.int32))
+
+
+def test_propose_victims_and_rings_match():
+    """The serving learner's victim proposals (LRU / LFU / Random over the
+    unpinned valid lines, with JAX's uniforms drawn from the same key),
+    its prediction rings and ``note_miss``, against the reference."""
+    from repro.storage.cache_state import CacheState as JCache
+    from repro_torch.kernels import threefry
+    from repro_torch.storage.cache_state import CacheState as TCache
+    rng = np.random.default_rng(5)
+    cfg = jol.OLConfig(pred_cap=4)
+    jst, tst = jol.init_ol(cfg), tol.init_ol(tol.OLConfig(pred_cap=4))
+    key = threefry.prng_key(3)
+    for _ in range(20):
+        n = 13
+        arrs = dict(tags=rng.integers(-1, 50, n).astype(np.int32),
+                    valid=rng.random(n) < 0.8, dirty=rng.random(n) < 0.5,
+                    freq=rng.integers(0, 5, n).astype(np.int32),
+                    ts=rng.integers(0, 5, n).astype(np.int32))
+        pinned = rng.random(n) < 0.3
+        key, vkey = threefry.split(key)
+        jkey = jnp.asarray(np.array(vkey, np.uint32))
+        want = jol.propose_victims(JCache(**{k: jnp.asarray(v) for k, v in
+                                             arrs.items()}), jkey,
+                                   jnp.asarray(pinned))
+        got = tol.propose_victims(TCache(**{k: torch.as_tensor(v) for k, v in
+                                            arrs.items()}), vkey,
+                                  torch.as_tensor(pinned))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        pages = arrs["tags"][np.asarray(want)]
+        jst = jol.note_miss(jol.record_predictions(jst, cfg,
+                                                   jnp.asarray(pages)),
+                            jnp.int32(pages[0]))
+        tst = tol.note_miss(tol.record_predictions(tst, tol.OLConfig(
+            pred_cap=4), torch.as_tensor(pages)), int(pages[0]))
+        for a, b in zip(jst, tst):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
 def test_choose_expert_and_probabilities_match():
     rng = np.random.default_rng(3)
     w = rng.random((500, 3)).astype(np.float32)
