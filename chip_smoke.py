@@ -24,7 +24,7 @@ after:
    the whole distance array;
 9. the sweep's megabatch at full width: 16 points, 8 cache signatures,
    one cache-scan launch of 128 rows, and the cache-scan kernel against
-   its plain version on those rows' first 2^17 steps;
+   its plain version on those rows' first 2^15 steps;
 10. serving at full width: mistral-nemo-12b in bf16 (weights from seed 0),
    8 requests x 3,072-token prompts, prefill and 257 greedy decode steps
    over the paged two-tier KV cache (tier 1 at half the pages, promotion
@@ -34,13 +34,27 @@ after:
    kernel run's tokens: the tier state equal integer for integer, the
    learner's f32 weights bit for bit, the final hidden states and the
    logprobs within a tolerance that two planted faults exceed.
+11. serving mamba2-370m at full width (48 SSD layers, no KV pools), as
+   phase 10: 48 SSD-scan launches at prefill, the kernel against its
+   plain version on layer 0's captured inputs (y within one bf16 step,
+   the final state within SSD_F32_TOL), the plain path teacher-forced
+   within HIDDEN_TOL of the kernel run against a noise floor (the plain
+   scan with half-length chunks), and a planted fault (layer 0's
+   handed-off state zeroed) above the bar;
+12. serving recurrentgemma-9b at full width (26 RG-LRU and 12 local
+   attention layers, window 2,048, read window 17 pages), as phase 10:
+   26 RG-LRU, 12 flash and 2 x 12 x 257 paged launches, each kernel
+   against its plain version on captured inputs, the plain path with
+   the tier state equal and the hidden states and logprobs within their
+   bars, and planted faults (the window's token mask dropped; the
+   RG-LRU handoff state unrounded) above the bar.
 
 It prints:
 
 - the card's name and power limit, as ``nvidia-smi`` prints them;
 - one line per phase, with its times;
-- one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
-  path, its agreement with the plain version, its time, the plain
+- one JSON line ``{"kernels": [...]}`` with the seven kernels'
+  launches on their paths, its agreement with the plain version, its time, the plain
   version's time and its bound, term by term;
 - last, ``{"ok": true, "device": {...}}``.
 
@@ -50,6 +64,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -80,6 +95,13 @@ VICTIM_ARRAYS = {"ws": 2, "lru": 1, "lfu": 1, "random": 0}
 DRAWS = {"ws": 1, "lru": 0, "lfu": 0, "random": 1}
 PUBLISHED_LAM_EFF = 86.6  # §V worked example
 PREFIX = 2**17  # full-size requests per row held against the plain version
+# Megabatch steps per row held against the plain version. Its rows fill
+# their 16,384 lines near step 105,000, so this prefix covers the fill
+# only; eviction under each policy and beta is held in phases 3 and 7,
+# and at full size under ws in phase 5. The plain version's per-step loop
+# takes about 1.5 ms a step on an H100 (PERF.md), and 2^17 steps here
+# would take a fifth of the smoke's time.
+MEGA_PREFIX = 2**15
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 # Phase 10: the full-width serving cell, and its tolerances.
 SERVE = dict(arch="mistral-nemo-12b", full=True, requests=8, prompt=3072,
@@ -102,6 +124,25 @@ LOGPROB_TOL = 0.5
 # |h - h_plain| / |h_plain| for each sequence and step. Planted faults
 # (the tier-2 partial dropped; one tier-2 page skipped) must exceed it.
 HIDDEN_TOL = 0.05
+# Phases 11 and 12: the recurrent models at full width, served as phase 10.
+SSD_SERVE = dict(SERVE, arch="mamba2-370m")
+RG_SERVE = dict(SERVE, arch="recurrentgemma-9b")
+# The SSD kernel's f32 results (the final state; y from f32 inputs)
+# against the plain version's, over the largest magnitude. Both sum the
+# within-chunk decay dt A in f32; at mamba2's chunk of 256 a chunk's sum
+# reaches several hundred, where one f32 ulp is ~3e-5, so the decays
+# exp(cum_t - cum_s) of two summation orders differ by that much (2.5e-5
+# for the state, 2.6e-5 for y on an H100, PERF.md §6).
+SSD_F32_TOL = 1e-4
+# Phase 11's bar on the final hidden state, kernel run vs plain run: the
+# random 48-layer mamba2 in bf16 turns a reordering into more than phase
+# 10's bar (the plain path against itself with half-length chunks differs
+# by 0.069 on an H100, PERF.md §6); 2.9x that floor, while the planted
+# fault (one layer's handed-off state zeroed) gave 0.82. So this comparison
+# catches only faults that move the hidden state by more than 0.2; the
+# kernel-level checks on captured inputs (y within one bf16 step, the state
+# within SSD_F32_TOL) carry the fine bar.
+SSD_HIDDEN_TOL = 0.2
 PROFILE_STEPS = 4  # decode steps traced with torch.profiler
 CONTROL_STEPS = 24  # decode steps of the noise-floor run
 
@@ -261,12 +302,14 @@ def phase_build():
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import probe
     from repro_torch.kernels import reuse_distance as rd
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import ssd_scan as ss
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         libs = list(pool.map(lambda f: f(), (
             cs.build_cache_scan, rd.build_reuse_distance, probe.build_probe,
             fa.build_flash_attention, pa.build_paged_attention,
-            pg.build_page_copy)))
+            pg.build_page_copy, ss.build_ssd_scan, rs.build_rglru_scan)))
     dt = time.perf_counter() - t0
     for lib in libs:
         report = [ln.strip() for ln in lib.with_suffix(".log").read_text()
@@ -672,9 +715,8 @@ def phase_mrc(spec) -> dict:
 def phase_megabatch(full_ctr, l2_rate: float) -> dict:
     """The sweep's megabatch at full width: 4 policies x 2 betas (8 cache
     signatures) x 2 rates, one 2^19 bucket, one launch of 128 rows; then
-    that launch's rows against the plain version on their first PREFIX
-    steps (every row fills its 16,384 lines near step 105,000 and evicts
-    after it)."""
+    that launch's rows against the plain version on their first
+    MEGA_PREFIX steps."""
     from repro_torch.kernels import cache_scan as cs
     from repro_torch.kernels import probe
     from repro_torch.sim import sweep
@@ -732,16 +774,14 @@ def phase_megabatch(full_ctr, l2_rate: float) -> dict:
                    probe.chain_step_ms(dev, n_rows=B, threads=threads,
                                        steps=L), l2_rate)
 
-    # The launch's rows against the plain version on their first PREFIX
-    # steps, with their own knobs, keys and window ids.
-    P = PREFIX
+    # The launch's rows against the plain version on their first
+    # MEGA_PREFIX steps, with their own knobs, keys and window ids.
+    P = MEGA_PREFIX
     pre = (cfg, hyper, keys, *(x[:, :P].contiguous()
                                for x in (pages, writes, win)))
     pk_ms, pout = cuda_ms(lambda: cs.cache_scan_cuda(*pre, **kw))
     pp_ms, want = cuda_ms(lambda: cs.cache_scan_plain(*pre, **kw))
     err = compare(pout, want, f"megabatch rows, first {P} steps")
-    if not (pout["evictions"] > 0).all():
-        raise AssertionError("a megabatch row never evicted in the prefix")
     pre_b = bound(policies, pout, pages[:, :P].cpu().numpy(), cfg.n_lines,
                   W, probe.chain_step_ms(dev, n_rows=B, threads=threads,
                                          steps=P), l2_rate)
@@ -757,7 +797,9 @@ def phase_megabatch(full_ctr, l2_rate: float) -> dict:
         f"betas {sorted(knobs)}), first {P} steps, n_lines={cfg.n_lines}, "
         f"{W} windows: equal (tolerance 0: integers exact, f32 bit for "
         f"bit); kernel {pk_ms:.1f} ms, plain {pp_ms:.1f} ms, "
-        f"{fmt_bound(pre_b)}; evictions/row "
+        f"{fmt_bound(pre_b)}; misses/row "
+        f"{int(pout['misses'].min())}..{int(pout['misses'].max())}, "
+        f"evictions/row "
         f"{int(pout['evictions'].min())}..{int(pout['evictions'].max())}")
     return dict(sweep_launches=launches["cache_scan"], sweep_ms=k_ms,
                 sweep_bound_ms=mega_b["bound_ms"],
@@ -781,7 +823,7 @@ def _rel_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max()) / den
 
 
-def _flash_excess(got, want) -> float:
+def _bf16_step_excess(got, want) -> float:
     """Largest ``|got - want| / (FLASH_ULP |want| + FLASH_ABS)``, element
     by element: at most 1 passes."""
     g, w = got.float(), want.float()
@@ -814,12 +856,13 @@ def _hidden_err(h, ref) -> float:
                   / ref[:n].norm(dim=-1)).max())
 
 
-def _flash_bound(q, k) -> dict:
-    """Causal GQA attention on q ``[B, H, S, hd]``: 4 flops a visible
-    (query, key) pair and head dim (QK^T and PV) at the bf16 tensor-core
-    rate; q, k, v read once and the output written once at HBM's rate."""
+def _flash_bound(q, k, window=None) -> dict:
+    """Causal (sliding-window) GQA attention on q ``[B, H, S, hd]``: 4
+    flops a visible (query, key) pair and head dim (QK^T and PV) at the
+    bf16 tensor-core rate; q, k, v read once and the output written once
+    at HBM's rate."""
     B, H, S, hd = q.shape
-    pairs = S * (S + 1) // 2
+    pairs = sum(min(i + 1, window or S) for i in range(S))
     flops = 4 * B * H * pairs * hd
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
     return dict(_largest(dict(bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
@@ -829,16 +872,19 @@ def _flash_bound(q, k) -> dict:
 
 def _paged_bound(calls, page: int) -> dict:
     """Decode attention over both tiers of one layer: every live K and V
-    row of the owned pages read once (each page from one tier), q read and
-    the partials written, at HBM's rate; 4 flops a live token, head dim
-    and query head at the f32 rate of the data sheet (67 TFLOP/s)."""
+    row of the owned pages read once (each page from one tier; inside the
+    sliding window where there is one), q read and the partials written,
+    at HBM's rate; 4 flops a live token, head dim and query head at the
+    f32 rate of the data sheet (67 TFLOP/s)."""
     nbytes = flops = 0
-    for q, pool, slot, live in calls:
+    for q, pool, slot, live, window in calls:
         B, H, hd = q.shape
         KV = pool.shape[3]
         tok = torch.arange(slot.shape[1] * page, device=slot.device)
-        on = (slot >= 0).repeat_interleave(page, 1) & (
-            tok[None] < live.to(slot.device)[:, None])
+        n_live = live.to(slot.device)[:, None]
+        on = (slot >= 0).repeat_interleave(page, 1) & (tok[None] < n_live)
+        if window > 0:
+            on &= tok[None] >= n_live - window
         n = int(on.sum())
         nbytes += n * 2 * KV * hd * pool.element_size() + 4 * q.numel() \
             + 4 * (B * H * hd + 2 * B * H)
@@ -854,7 +900,8 @@ def _copy_bound(n_rows: int, row_bytes: int) -> dict:
                               / HBM_BYTES_PER_S)), bytes=2 * n_rows * row_bytes)
 
 
-def _profile_decode(cfg, params, run, S: dict, dev) -> None:
+def _profile_decode(cfg, params, run, S: dict, dev, tag: str = "serve"
+                    ) -> None:
     """Where a decode step's time goes: PROFILE_STEPS more steps of the
     kernel run (its pools hold pages past the last token), after one
     untraced step, under ``torch.profiler``; kernel time by group, its
@@ -862,8 +909,8 @@ def _profile_decode(cfg, params, run, S: dict, dev) -> None:
     synchronizations a step. The profiler's own host cost makes the
     traced steps far slower, so their wall time is not the step's."""
     from repro_torch.serving import engine as eng
-    kv = run.state.kv
-    sc = eng.ServeConfig(max_seq=kv.page_slot.shape[1] * cfg.page_size,
+    page = cfg.page_size
+    sc = eng.ServeConfig(max_seq=-(-(S["prompt"] + S["new"]) // page) * page,
                          batch_local=S["requests"],
                          hbm_fraction=S["hbm_fraction"])
     dec = eng.make_decode_step(cfg, sc)
@@ -891,9 +938,9 @@ def _profile_decode(cfg, params, run, S: dict, dev) -> None:
         elif "Synchronize" in e.name:
             syncs += 1
     busy = sum(groups.values())
-    if groups["paged"] <= 0:
+    if run.state.kv is not None and groups["paged"] <= 0:
         raise AssertionError("the profiled decode steps ran no paged kernel")
-    log(f"[serve, profile] {PROFILE_STEPS} decode steps after the run "
+    log(f"[{tag}, profile] {PROFILE_STEPS} decode steps after the run "
         f"(torch.profiler): kernels {busy:.2f} ms a step, "
         f"{100 * busy / step_ms:.1f}% of the run's {step_ms:.2f} ms step: "
         f"paged attention {groups['paged']:.2f} ms, GEMMs "
@@ -939,13 +986,13 @@ def phase_serve(dev=torch.device("cuda")) -> list:
             cap["flash"] = (q.clone(), k.clone(), v.clone(), kw)
         return flash0(q, k, v, **kw)
 
-    def paged_hook(q, pool, slot, live):
+    def paged_hook(q, pool, slot, live, window=0):
         i = calls["paged"] - last
         if i in (0, 1, 2 * L - 2, 2 * L - 1):
             cap.setdefault("paged", []).append(
-                (q.clone(), pool, slot.clone(), live.clone()))
+                (q.clone(), pool, slot.clone(), live.clone(), window))
         calls["paged"] += 1
-        return paged0(q, pool, slot, live)
+        return paged0(q, pool, slot, live, window)
 
     def copy_hook(dst, src, di, si):
         if "copy" not in cap:
@@ -959,14 +1006,18 @@ def phase_serve(dev=torch.device("cuda")) -> list:
     try:
         run, run_h = _with_hidden(lambda: serve.serve(
             cfg, params, prompts, new=S["new"],
-            hbm_fraction=S["hbm_fraction"], promote_every=S["promote_every"]))
+            hbm_fraction=S["hbm_fraction"],
+            promote_every=S["promote_every"]))
     finally:
         fa.flash_attention, pa.paged_attention, pg.page_copy = \
             flash0, paged0, copy0
     launches = serve.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if not all(launches.values()):
-        raise AssertionError(f"a serving kernel never launched: {launches}")
+    if not all(launches[k] for k in ("flash_attention", "paged_attention",
+                                     "page_copy")) or \
+            launches["ssd_scan"] or launches["rglru_scan"]:
+        raise AssertionError(f"a serving kernel never launched, or a scan "
+                             f"kernel did: {launches}")
     if launches["flash_attention"] != L or \
             launches["paged_attention"] != 2 * L * steps:
         raise AssertionError(f"launches {launches}, want {L} flash and "
@@ -1047,12 +1098,12 @@ def phase_serve(dev=torch.device("cuda")) -> list:
     comb0, paged_k = eng.combine_partials, pa.paged_attention
     seen = dict(n=0)
 
-    def skip_page0(q, pool, slot, live):
+    def skip_page0(q, pool, slot, live, window=0):
         seen["n"] += 1
         if seen["n"] % 2 == 0:   # the engine launches tier 1, then tier 2
             slot = slot.clone()
             slot[:, 0] = -1
-        return paged_k(q, pool, slot, live)
+        return paged_k(q, pool, slot, live, window)
     faults = {}
     for name, patch in (
             ("tier-2 partial dropped",
@@ -1105,12 +1156,12 @@ def phase_serve(dev=torch.device("cuda")) -> list:
     f_err = float((got.float() - want.float()).abs().max())
     f_rel = float(((got.float() - want.float()).abs()
                    / (want.float().abs() + 1)).max())
-    f_exc = _flash_excess(got, want)
+    f_exc = _bf16_step_excess(got, want)
     # A planted fault: the last 64-query tile of every head off by 1/32.
     bad = got.clone()
     bad[:, :, -64:] = (bad[:, :, -64:].float() * (1 + FLASH_FAULT)).to(
         bad.dtype)
-    bad_exc = _flash_excess(bad, want)
+    bad_exc = _bf16_step_excess(bad, want)
     bad_rel = float(((bad.float() - want.float()).abs()
                      / (want.float().abs() + 1)).max())
     del bad
@@ -1141,9 +1192,9 @@ def phase_serve(dev=torch.device("cuda")) -> list:
     # nothing wrote those layers after it).
     pcalls = cap["paged"]
     p_err = 0.0
-    for i, (qq, pool, slot, live) in enumerate(pcalls):
-        got = pa.paged_attention_cuda(qq, pool, slot, live)
-        want = paged_attention_ref(qq, pool, slot, live)
+    for i, (qq, pool, slot, live, window) in enumerate(pcalls):
+        got = pa.paged_attention_cuda(qq, pool, slot, live, window)
+        want = paged_attention_ref(qq, pool, slot, live, window)
         for g, w, name in zip(got, want, ("acc", "m", "l")):
             e = _rel_err(g, w)
             p_err = max(p_err, e)
@@ -1248,6 +1299,553 @@ def phase_serve(dev=torch.device("cuda")) -> list:
     ]
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [t for x in tree for t in _leaves(x)]
+    return [tree]
+
+
+def _serve_pair(tag: str, cfg, params, prompts, S: dict, dev):
+    """The full-width serve through ``repro_torch.launch.serve`` with the
+    kernels (launch counts set to 0 just before it and read just after),
+    its output checked, and the same serve with the plain versions
+    selected, teacher-forced on its tokens. Returns ``(run, run_h,
+    launches, plain, plain_h, forced, peak_gb)``."""
+    from repro_torch.kernels import plain_versions
+    from repro_torch.launch import serve
+    serve.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run, run_h = _with_hidden(lambda: serve.serve(
+        cfg, params, prompts, new=S["new"],
+        hbm_fraction=S["hbm_fraction"], promote_every=S["promote_every"]))
+    launches = serve.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    B, steps = S["requests"], S["new"] - 1
+    # Token ids range over the embedding's rows: the vocabulary padded to a
+    # multiple of 256, whose extra rows hold random weights here and can
+    # win the argmax, as in the reference's unembed_greedy.
+    n_rows = params["embed"].shape[0]
+    if run.tokens.shape != (B, S["new"]) or not np.isfinite(
+            run.logprobs).all() or not ((run.tokens >= 0)
+                                        & (run.tokens < n_rows)).all():
+        raise AssertionError(
+            f"[{tag}] serve output is not finite tokens / logprobs of the "
+            f"expected shape: {run.tokens.shape}, tokens in "
+            f"[{run.tokens.min()}, {run.tokens.max()}] (rows {n_rows}), "
+            f"finite logprobs {np.isfinite(run.logprobs).mean():.3f}")
+    if not torch.isfinite(run_h).all() or run_h.shape[0] != S["new"]:
+        raise AssertionError(f"[{tag}] hidden states not finite")
+    forced = torch.as_tensor(run.tokens[:, :-1], device=dev)
+    serve.reset_launch_counts()
+    with plain_versions():
+        plain, plain_h = _with_hidden(lambda: serve.serve(
+            cfg, params, prompts, new=S["new"],
+            hbm_fraction=S["hbm_fraction"], promote_every=S["promote_every"],
+            forced=forced))
+    if any(serve.launch_counts().values()):
+        raise AssertionError(f"[{tag}] the plain run launched a kernel")
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[{tag}] {cfg.name} ({n_params / 1e9:.2f} B params, bf16, "
+        f"seed 0), {B} requests x {S['prompt']} prompt tokens, {steps} "
+        f"decode steps: prefill {run.prefill_s:.3f} s, decode "
+        f"{run.decode_s:.3f} s ({B * steps / run.decode_s:.1f} tok/s, "
+        f"{1e3 * run.decode_s / steps:.2f} ms/step); launches {launches}; "
+        f"peak memory {peak_gb:.1f} GB; plain run: prefill "
+        f"{plain.prefill_s:.3f} s, decode {plain.decode_s:.3f} s")
+    return run, run_h, launches, plain, plain_h, forced, peak_gb
+
+
+def _rec_err(a, b) -> float:
+    """Largest relative difference of the recurrent states, leaf by leaf
+    and layer by layer (``|a - b|`` over the largest ``|b|`` of the
+    layer's leaf)."""
+    err = 0.0
+    for ra, rb in ((a.rec, b.rec), (a.rec_tail, b.rec_tail)):
+        for da, db in zip(ra, rb):
+            for k in da:
+                x, y = da[k].float(), db[k].float()
+                for i in range(x.shape[0] if x.dim() > 2 else 1):
+                    xi, yi = (x[i], y[i]) if x.dim() > 2 else (x, y)
+                    err = max(err, _rel_err(xi, yi))
+    return err
+
+
+def _short_runs(cfg, params, prompts, S: dict, forced, plain_h, plain_lp,
+                runs: dict, n_steps: int) -> dict:
+    """The first ``n_steps`` decode steps of the teacher-forced serve once
+    per entry of ``runs`` (name -> (patch, unpatch, plain?)): each one's
+    largest hidden-state difference and logprob gap against the plain
+    run."""
+    from repro_torch.kernels import plain_versions
+    from repro_torch.launch import serve
+    n_ctl = min(n_steps, S["new"] - 1)
+    out = {}
+    for name, (patch, unpatch, plain) in runs.items():
+        patch()
+        try:
+            if plain:
+                with plain_versions():
+                    res, h = _with_hidden(lambda: serve.serve(
+                        cfg, params, prompts, new=n_ctl + 1,
+                        hbm_fraction=S["hbm_fraction"],
+                        promote_every=S["promote_every"],
+                        forced=forced[:, :n_ctl], max_seq=S["max_seq"]))
+            else:
+                res, h = _with_hidden(lambda: serve.serve(
+                    cfg, params, prompts, new=n_ctl + 1,
+                    hbm_fraction=S["hbm_fraction"],
+                    promote_every=S["promote_every"],
+                    forced=forced[:, :n_ctl], max_seq=S["max_seq"]))
+        finally:
+            unpatch()
+        out[name] = (_hidden_err(h, plain_h), float(np.abs(
+            res.logprobs - plain_lp[:, :n_ctl + 1]).max()))
+        del res, h
+    return out
+
+
+def _check_bars(tag: str, h_err: float, lp_err: float, control: dict,
+                faults: dict, n_ctl: int, tol: float = HIDDEN_TOL) -> None:
+    log(f"[{tag}, plain path] final hidden state |h - h_plain| / |h_plain| "
+        f"largest {h_err:.3e} over all steps (tolerance {tol}); "
+        + "; ".join(f"{k} (first {n_ctl} steps) {v[0]:.3e} (logprobs "
+                    f"{v[1]:.3e})" for k, v in {**control, **faults}.items())
+        + f"; logprobs max |diff| {lp_err:.3e} (tolerance {LOGPROB_TOL})")
+    if not h_err <= tol:
+        raise AssertionError(f"[{tag}] hidden states differ by {h_err} > "
+                             f"{tol}")
+    if not lp_err <= LOGPROB_TOL:
+        raise AssertionError(f"[{tag}] logprobs differ by {lp_err} > "
+                             f"{LOGPROB_TOL}")
+    for name, (e, _) in control.items():
+        if not e <= tol:
+            raise AssertionError(f"[{tag}] the noise floor '{name}' {e} is "
+                                 f"above the bar {tol}")
+    for name, (e, _) in faults.items():
+        if not e > tol:
+            raise AssertionError(f"[{tag}] planted fault '{name}' passes the "
+                                 f"comparison: {e} <= {tol}")
+
+
+def _ssd_bound(x, Bm, chunk: int) -> dict:
+    """The SSD scan's products, per (sequence, head, chunk of q steps):
+    C B^T and (CB * decay)(dt x) over the q (q + 1) / 2 causal pairs
+    t >= s (2 N and 2 P flops a pair; y sums over s <= t only), C h and
+    B^T x (2 q N P each), at the bf16 tensor-core rate; x, dt, B, C read
+    once and y and the final state written once at HBM's rate."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    lens = [Q] * (S // Q) + ([S % Q] if S % Q else [])
+    flops = Bsz * H * sum(q * (q + 1) // 2 * (2 * N + 2 * P)
+                          + 4 * q * N * P for q in lens)
+    nbytes = (2 * x.numel() * x.element_size() + 4 * Bsz * S * H
+              + 2 * Bm.numel() * Bm.element_size() + 4 * H
+              + 4 * Bsz * H * N * P)
+    return dict(_largest(dict(bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                              ops_ms=1e3 * flops / BF16_FLOPS_PER_S)),
+                flops=flops, bytes=nbytes)
+
+
+# f32 operations an RG-LRU element takes: two gates (a multiply-add, an
+# exp, an add and a divide each), log a, a, 1 - a^2 (an exp, a subtract, a
+# max, a square root), i u, the product and the update's multiply-add.
+RGLRU_OPS = 21
+
+
+def _rglru_bound(u) -> dict:
+    """u read once and h written once at HBM's rate (the five [W] vectors
+    too); RGLRU_OPS f32 operations an element at the data sheet's f32 rate
+    (67 TFLOP/s)."""
+    nbytes = 2 * u.numel() * u.element_size() + 5 * 4 * u.shape[-1]
+    flops = RGLRU_OPS * u.numel()
+    return dict(_largest(dict(bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                              ops_ms=1e3 * flops / 67e12)),
+                flops=flops, bytes=nbytes)
+
+
+def phase_ssd_serve(dev=torch.device("cuda")) -> dict:
+    """Phase 11: mamba2-370m served at full width through
+    ``repro_torch.launch.serve``; returns the SSD-scan kernel's entry."""
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tr
+    S = SSD_SERVE
+    tag = "ssd serve"
+    gc.collect()  # the previous phase's model
+    torch.cuda.empty_cache()
+    cfg, params = serve.build(S["arch"], full=True, seed=0, device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (S["requests"], S["prompt"])).astype(np.int32)
+    S = dict(S, max_seq=-(-(S["prompt"] + S["new"]) // cfg.page_size)
+             * cfg.page_size)
+    cap = {}
+    scan0, cuda0 = ks.ssd_scan, ks.ssd_scan_cuda
+
+    def cuda_hook(x, dt, A, Bm, Cm, chunk):  # the kernel's own inputs
+        if "ssd" not in cap:
+            cap["ssd"] = (x.clone(), dt.clone(), A.clone(), Bm.clone(),
+                          Cm.clone(), chunk)
+        return cuda0(x, dt, A, Bm, Cm, chunk)
+    ks.ssd_scan_cuda = cuda_hook
+    try:
+        run, run_h, launches, plain, plain_h, forced, _ = _serve_pair(
+            tag, cfg, params, prompts, S, dev)
+    finally:
+        ks.ssd_scan_cuda = cuda0
+    if launches["ssd_scan"] != cfg.n_layers or launches["ssd_scan"] != sum(
+            launches.values()) or run.state.kv is not None:
+        raise AssertionError(f"[{tag}] launches {launches}, want "
+                             f"{cfg.n_layers} ssd_scan and nothing else")
+    rec_err = _rec_err(run.state, plain.state)
+    h_err = _hidden_err(run_h, plain_h)
+    lp_err = float(np.abs(run.logprobs - plain.logprobs).max())
+
+    # The noise floor: the plain path with chunks of half the length (the
+    # same scan, summed in another order). The planted fault: layer 0's
+    # handed-off SSD state zeroed, on the kernel path.
+    def half_chunk(x, dt, A, Bm, Cm, *, chunk):
+        return scan0(x, dt, A, Bm, Cm, chunk=chunk // 2)
+    block0 = tr.ssd_block
+    seen = dict(n=0)
+
+    def zero_state(*a, **kw):
+        out, st = block0(*a, **kw)
+        seen["n"] += 1
+        if st is not None and seen["n"] == 1:
+            st = dict(st, h=torch.zeros_like(st["h"]))
+        return out, st
+    runs = {
+        "noise floor (plain, chunk / 2)": (
+            lambda: setattr(ks, "ssd_scan", half_chunk),
+            lambda: setattr(ks, "ssd_scan", scan0), True),
+        "fault: layer 0's handed-off state zeroed": (
+            lambda: setattr(tr, "ssd_block", zero_state),
+            lambda: setattr(tr, "ssd_block", block0), False)}
+    short = _short_runs(cfg, params, prompts, S, forced, plain_h,
+                        plain.logprobs, runs, CONTROL_STEPS)
+    control = {k: v for k, v in short.items() if k.startswith("noise")}
+    faults = {k: v for k, v in short.items() if k.startswith("fault")}
+    log(f"[{tag}, plain path] recurrent states after the last step, kernel "
+        f"run vs plain run: largest |diff| / largest |plain| {rec_err:.3e}")
+    _check_bars(tag, h_err, lp_err, control, faults, CONTROL_STEPS,
+                SSD_HIDDEN_TOL)
+    del plain, plain_h
+
+    # The kernel against its plain version on layer 0's prefill inputs.
+    x, dt, A, Bm, Cm, chunk = cap["ssd"]
+    ks.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk)  # warm-up
+    k_ms, (y, h) = cuda_ms(lambda: ks.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk),
+                           reps=5)
+    p_ms, (yp, hp) = cuda_ms(lambda: ks.ssd_scan_plain(x, dt, A, Bm, Cm,
+                                                        chunk))
+    y_err = float((y.float() - yp.float()).abs().max())
+    y_exc = _bf16_step_excess(y, yp)
+    h_rel = _rel_err(h, hp)
+    # The same inputs in f32: the kernel's arithmetic without bf16 rounding.
+    f32 = [t.float() for t in (x, Bm, Cm)]
+    y32, h32 = ks.ssd_scan_cuda(f32[0], dt, A, f32[1], f32[2], chunk)
+    y32p, h32p = ks.ssd_scan_plain(f32[0], dt, A, f32[1], f32[2], chunk)
+    y32_rel = _rel_err(y32, y32p)
+    Bsz, S_, H = dt.shape
+    cum_max = float((dt * A).reshape(Bsz, S_ // chunk, chunk, H).sum(2)
+                    .abs().max())
+    bad = y.clone()
+    bad[:, -64:] = (bad[:, -64:].float() * (1 + FLASH_FAULT)).to(bad.dtype)
+    bad_exc = _bf16_step_excess(bad, yp)
+    del bad, y32, h32, y32p, h32p, f32
+    b = _ssd_bound(x, Bm, chunk)
+    log(f"[{tag}, ssd_scan vs plain] layer 0's prefill, x {list(x.shape)} "
+        f"bf16, N {Bm.shape[-1]}, chunk {chunk}: y max |diff| {y_err:.3e}, "
+        f"|diff| / ({FLASH_ULP:g} |plain| + {FLASH_ABS:g}) {y_exc:.3f} "
+        f"(tolerance 1; planted fault, the last 64 steps x (1 + "
+        f"{FLASH_FAULT:g}): {bad_exc:.3f}); final state |diff| / largest "
+        f"|plain| {h_rel:.3e} (tolerance {SSD_F32_TOL}; the largest chunk "
+        f"sum of |dt A| is {cum_max:.1f}); in f32, y {y32_rel:.3e} "
+        f"(tolerance {SSD_F32_TOL}); kernel {k_ms:.3f} ms, plain "
+        f"{p_ms:.1f} ms, {fmt_bound(b)}")
+    if not (y_exc <= 1 and h_rel <= SSD_F32_TOL and y32_rel <= SSD_F32_TOL):
+        raise AssertionError(f"[{tag}] ssd kernel != plain: y {y_exc}, "
+                             f"state {h_rel}, f32 y {y32_rel}")
+    if not bad_exc > 1:
+        raise AssertionError(f"[{tag}] the y check passes a planted fault")
+    _profile_decode(cfg, params, run, S, dev, tag=tag)
+    del run, run_h, params
+    return dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:68",
+        launches=launches["ssd_scan"], max_abs_err=y_err, ms=k_ms,
+        plain_ms=p_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+        bound_terms=b["bound_terms"], library_ms=None,
+        state_rel_err=h_rel,
+        shape=f"x {list(x.shape)} bf16, B/C {list(Bm.shape)}, chunk {chunk} "
+              f"(layer 0 of the prefill)")
+
+
+def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
+    """Phase 12: recurrentgemma-9b served at full width through
+    ``repro_torch.launch.serve``; returns the RG-LRU-scan kernel's entry
+    and the serving kernels' numbers at this model's shapes."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import page_gather as pg
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain_versions
+    from repro_torch.kernels import rglru_scan as kr
+    from repro_torch.kernels.ref import (attention_ref, page_copy_ref,
+                                         paged_attention_ref)
+    from repro_torch.launch import serve
+    from repro_torch.models import rglru as rg
+    from repro_torch.serving import engine as eng
+    from repro_torch.models.attention import blockwise_attention
+    S = RG_SERVE
+    tag = "rglru serve"
+    gc.collect()  # the previous phase's model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, params = serve.build(S["arch"], full=True, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (S["requests"], S["prompt"])).astype(np.int32)
+    S = dict(S, max_seq=-(-(S["prompt"] + S["new"]) // cfg.page_size)
+             * cfg.page_size)
+    steps = S["new"] - 1
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k.startswith("attn") for k in kinds)
+    n_rec = kinds.count("rglru")
+
+    cap: dict = {}
+    calls = dict(paged=0)
+    last = (steps - 1) * 2 * n_attn
+    flash0, paged0, copy0, scan0 = (fa.flash_attention, pa.paged_attention,
+                                    pg.page_copy, kr.rglru_scan)
+
+    def flash_hook(q, k, v, **kw):
+        if "flash" not in cap:
+            cap["flash"] = (q.clone(), k.clone(), v.clone(), kw)
+        return flash0(q, k, v, **kw)
+
+    def paged_hook(q, pool, slot, live, window=0):
+        if calls["paged"] - last in (0, 1):
+            cap.setdefault("paged", []).append(
+                (q.clone(), pool, slot.clone(), live.clone(), window))
+        calls["paged"] += 1
+        return paged0(q, pool, slot, live, window)
+
+    def copy_hook(dst, src, di, si):
+        if "copy" not in cap:
+            cap["copy"] = (dst, src.clone(), di.clone(), si.clone())
+        return copy0(dst, src, di, si)
+
+    def scan_hook(u, *ps):
+        if "rglru" not in cap:
+            cap["rglru"] = (u.clone(), *(p.clone() for p in ps))
+        return scan0(u, *ps)
+    fa.flash_attention, pa.paged_attention, pg.page_copy, kr.rglru_scan = (
+        flash_hook, paged_hook, copy_hook, scan_hook)
+    try:
+        run, run_h, launches, plain, plain_h, forced, peak = _serve_pair(
+            tag, cfg, params, prompts, S, dev)
+    finally:
+        fa.flash_attention, pa.paged_attention, pg.page_copy, \
+            kr.rglru_scan = flash0, paged0, copy0, scan0
+    want = dict(flash_attention=n_attn, paged_attention=2 * n_attn * steps,
+                rglru_scan=n_rec, ssd_scan=0)
+    if any(launches[k] != v for k, v in want.items()) or \
+            not launches["page_copy"]:
+        raise AssertionError(f"[{tag}] launches {launches}, want {want} and "
+                             "page copies")
+    kv, pkv = run.state.kv, plain.state.kv
+    for f in ("page_slot", "t2_slot", "lengths", "t", "t1_reads", "t2_reads",
+              "evictions", "writebacks"):
+        if not torch.equal(getattr(kv, f), getattr(pkv, f)):
+            raise AssertionError(f"[{tag}] kernel run != plain run in {f}")
+    for x, y in zip(kv.meta + kv.ols, pkv.meta + pkv.ols):
+        if not torch.equal(x, y):
+            raise AssertionError(f"[{tag}] kernel run != plain run in the "
+                                 "metadata or the learner")
+    if kv.key != pkv.key or not torch.equal(
+            kv.ols.weights.view(torch.int32), pkv.ols.weights.view(torch.int32)):
+        raise AssertionError(f"[{tag}] kernel run != plain run in the key / "
+                             "weights")
+    if not (kv.lengths == S["prompt"] + steps).all():
+        raise AssertionError(f"[{tag}] lengths {kv.lengths.tolist()}")
+    spec = eng.make_kv_spec(cfg, eng.ServeConfig(
+        max_seq=S["max_seq"], batch_local=S["requests"],
+        hbm_fraction=S["hbm_fraction"]))
+    log(f"[{tag}] init {init_s:.1f} s; {spec.n_pages} pages a sequence, "
+        f"{spec.hbm_slots} tier-1 and {spec.t2_slots} tier-2 slots, read "
+        f"window {spec.read_pages} pages "
+        f"(window {cfg.window} tokens); tier-1 page reads "
+        f"{int(kv.t1_reads[0])}, tier-2 {int(kv.t2_reads[0])}, evictions "
+        f"{int(kv.evictions[0])}, write-backs {int(kv.writebacks[0])}; OL "
+        f"weights {kv.ols.weights.tolist()}; tier state and learner equal "
+        f"to the plain run's (integers exact, f32 weights bit for bit)")
+    rec_err = _rec_err(run.state, plain.state)
+    h_err = _hidden_err(run_h, plain_h)
+    lp_err = float(np.abs(run.logprobs - plain.logprobs).max())
+
+    # The noise floor: the plain path with blockwise prefill attention.
+    # Planted faults on the kernel path: (a) the window's token mask
+    # dropped (the paged kernel also reads the tokens of the window's
+    # first page that are older than the window); (b) the prefill's
+    # RG-LRU state handed on unrounded (f32) instead of as the bf16 output.
+    def blockwise(q, k, v, **kw):
+        return blockwise_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), **kw).transpose(1, 2)
+
+    def no_window(q, pool, slot, live, window=0):
+        return paged0(q, pool, slot, live, 0)
+    handoff0 = rg._handoff
+    last_f32 = {}
+
+    def scan_f32(u, *ps):
+        last_f32["h"] = kr.rglru_scan_cuda(u.float(), *ps)[:, -1]
+        return scan0(u, *ps)
+
+    def unrounded(h):
+        return last_f32["h"]
+
+    def patch_f32():
+        kr.rglru_scan, rg._handoff = scan_f32, unrounded
+
+    def unpatch_f32():
+        kr.rglru_scan, rg._handoff = scan0, handoff0
+    runs = {
+        "noise floor (plain, blockwise prefill attention)": (
+            lambda: setattr(fa, "flash_attention", blockwise),
+            lambda: setattr(fa, "flash_attention", flash0), True),
+        "fault (a): window token mask dropped": (
+            lambda: setattr(pa, "paged_attention", no_window),
+            lambda: setattr(pa, "paged_attention", paged0), False),
+        "fault (b): RG-LRU handoff unrounded": (patch_f32, unpatch_f32,
+                                                False)}
+    # A page of decode steps: the token mask of fault (a) admits r + 1
+    # tokens older than the window at a step with L % page = r, so only a
+    # whole page of steps reaches its full size.
+    n_ctl = cfg.page_size
+    short = _short_runs(cfg, params, prompts, S, forced, plain_h,
+                        plain.logprobs, runs, n_ctl)
+    control = {k: v for k, v in short.items() if k.startswith("noise")}
+    faults = {k: v for k, v in short.items() if k.startswith("fault")}
+    log(f"[{tag}, plain path] recurrent states after the last step, kernel "
+        f"run vs plain run: largest |diff| / largest |plain| {rec_err:.3e}")
+    _check_bars(tag, h_err, lp_err, control, faults, n_ctl)
+    del plain, plain_h, pkv
+
+    # RG-LRU: layer 0's prefill u, element by element within one bf16 step.
+    u, *ps = cap["rglru"]
+    kr.rglru_scan_cuda(u, *ps)  # warm-up
+    r_ms, h = cuda_ms(lambda: kr.rglru_scan_cuda(u, *ps), reps=5)
+    rp_ms, hp = cuda_ms(lambda: kr.rglru_scan_plain(u, *ps))
+    r_err = float((h.float() - hp.float()).abs().max())
+    r_exc = _bf16_step_excess(h, hp)
+    bad = h.clone()
+    bad[:, -64:] = (bad[:, -64:].float() * (1 + FLASH_FAULT)).to(bad.dtype)
+    r_bad = _bf16_step_excess(bad, hp)
+    del bad, h, hp
+    rb = _rglru_bound(u)
+    log(f"[{tag}, rglru_scan vs plain] layer 0's prefill, u "
+        f"{list(u.shape)} bf16: max |diff| {r_err:.3e}, |diff| / "
+        f"({FLASH_ULP:g} |plain| + {FLASH_ABS:g}) {r_exc:.3f} (tolerance 1; "
+        f"planted fault {r_bad:.3f}); kernel {r_ms:.3f} ms, plain "
+        f"{rp_ms:.1f} ms, {fmt_bound(rb)}")
+    if not r_exc <= 1:
+        raise AssertionError(f"[{tag}] rglru kernel != plain: {r_exc}")
+    if not r_bad > 1:
+        raise AssertionError(f"[{tag}] the rglru check passes a planted "
+                             "fault")
+
+    # Flash at hd 256 with the 2,048-token window: layer 2's prefill.
+    q, k, v, kw = cap["flash"]
+    fa.flash_attention_cuda(q, k, v, **kw)
+    f_ms, got = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                        reps=3)
+    fp_ms, want_o = cuda_ms(lambda: attention_ref(q, k, v, **kw))
+    f_err = float((got.float() - want_o.float()).abs().max())
+    f_exc = _bf16_step_excess(got, want_o)
+    del got, want_o
+    if not f_exc <= 1:
+        raise AssertionError(f"[{tag}] flash kernel != plain: {f_exc}")
+    fb = _flash_bound(q, k, kw.get("window"))
+    log(f"[{tag}, flash vs plain] layer 2's prefill, q {list(q.shape)}, "
+        f"window {kw.get('window')}: max |diff| {f_err:.3e}, element-wise "
+        f"{f_exc:.3f} of its bar; kernel {f_ms:.2f} ms, plain {fp_ms:.1f} "
+        f"ms, {fmt_bound(fb)}")
+
+    # Paged: both tiers of the first attention layer at the last step.
+    pcalls = cap["paged"]
+    p_err = 0.0
+    for qq, pool, slot, live, window in pcalls:
+        got = pa.paged_attention_cuda(qq, pool, slot, live, window)
+        want_p = paged_attention_ref(qq, pool, slot, live, window)
+        for g, w in zip(got, want_p):
+            p_err = max(p_err, _rel_err(g, w))
+    if not p_err <= PAGED_REL_TOL:
+        raise AssertionError(f"[{tag}] paged kernel != plain: {p_err}")
+    p_ms, _ = cuda_ms(lambda: [pa.paged_attention_cuda(*c) for c in pcalls],
+                      reps=10)
+    pp_ms, _ = cuda_ms(lambda: [paged_attention_ref(*c) for c in pcalls],
+                       reps=3)
+    pb = _paged_bound(pcalls, cfg.page_size)
+    log(f"[{tag}, paged vs plain] last decode step, first attention layer, "
+        f"both tiers, window {pcalls[0][4]}: largest |diff| / largest "
+        f"|plain| {p_err:.3e} (tolerance {PAGED_REL_TOL}); kernel "
+        f"{p_ms:.4f} ms, plain {pp_ms:.3f} ms, {fmt_bound(pb)}")
+
+    # Page copy: the first prefill population, byte for byte.
+    dst, src, di, si = cap["copy"]
+    whole = kv.pool2
+    off = (dst.data_ptr() - whole.data_ptr()) // whole.element_size()
+    outs = []
+    for fn in (pg.page_copy_cuda, page_copy_ref):
+        buf = whole.clone()
+        view = buf.view(-1)[off:].as_strided(dst.shape, dst.stride())
+        fn(view, src, di, si)
+        torch.cuda.synchronize()
+        outs.append(buf)
+    if not torch.equal(outs[0].view(torch.uint8), outs[1].view(torch.uint8)):
+        raise AssertionError(f"[{tag}] page copy kernel != plain")
+    view = outs[0].view(-1)[off:].as_strided(dst.shape, dst.stride())
+    c_ms, _ = cuda_ms(lambda: pg.page_copy_cuda(view, src, di, si), reps=5)
+    live_rows = int(((di >= 0) & (si >= 0)).sum())
+    cb = _copy_bound(live_rows, dst[0].numel() * dst.element_size())
+    del outs, view
+    log(f"[{tag}, page copy vs plain] prefill population of layer 2 into "
+        f"tier 2 ({live_rows} pages): equal byte for byte; kernel "
+        f"{c_ms:.3f} ms, {fmt_bound(cb)}")
+    _profile_decode(cfg, params, run, S, dev, tag=tag)
+    del run, run_h, params
+    rglru = dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:55",
+        launches=launches["rglru_scan"], max_abs_err=r_err, ms=r_ms,
+        plain_ms=rp_ms, bound_ms=rb["bound_ms"], bound_by=rb["bound_by"],
+        bound_terms=rb["bound_terms"], library_ms=None,
+        shape=f"u {list(u.shape)} bf16 (layer 0 of the prefill)")
+    at_rg = dict(
+        flash_attention=dict(recurrentgemma_ms=f_ms,
+                             recurrentgemma_plain_ms=fp_ms,
+                             recurrentgemma_bound_ms=fb["bound_ms"],
+                             recurrentgemma_launches=launches[
+                                 "flash_attention"],
+                             recurrentgemma_max_abs_err=f_err),
+        paged_attention=dict(recurrentgemma_ms=p_ms,
+                             recurrentgemma_plain_ms=pp_ms,
+                             recurrentgemma_bound_ms=pb["bound_ms"],
+                             recurrentgemma_launches=launches[
+                                 "paged_attention"],
+                             recurrentgemma_max_abs_err=p_err),
+        page_copy=dict(recurrentgemma_ms=c_ms,
+                       recurrentgemma_bound_ms=cb["bound_ms"],
+                       recurrentgemma_launches=launches["page_copy"]))
+    return rglru, at_rg
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1266,6 +1864,10 @@ def main() -> int:
         **{"store.policy": "lru", "n_windows": 1}))
     mega = phase_megabatch(full_ctr, l2_rate)
     serving = phase_serve()
+    ssd = phase_ssd_serve()
+    rglru, at_rg = phase_rglru_serve()
+    for entry in serving:
+        entry.update(at_rg[entry["name"]])
     cache_scan = dict(
         name="cache_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/cache_scan.cu",
@@ -1276,7 +1878,8 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/reuse_distance.cu",
         replaces="src/repro/kernels/reuse_distance.py:142", library_ms=None,
         **mrc)
-    print(json.dumps({"kernels": [cache_scan, reuse, *serving]}), flush=True)
+    print(json.dumps({"kernels": [cache_scan, reuse, *serving, ssd, rglru]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,9 +3,10 @@ version.
 
 A wrapper runs its kernel on CUDA tensors and its plain version on CPU
 tensors. Inside :func:`plain_versions`, the serving path's wrappers
-(flash attention, paged attention, page copy) run their plain versions on
-CUDA tensors too: the explicit switch with which a run on the card is held
-against the plain path. Nothing falls back from one to the other.
+(flash attention, paged attention, page copy, the SSD and RG-LRU scans)
+run their plain versions on CUDA tensors too: the explicit switch with
+which a run on the card is held against the plain path. Nothing falls
+back from one to the other.
 """
 from __future__ import annotations
 

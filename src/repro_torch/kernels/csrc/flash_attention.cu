@@ -29,7 +29,9 @@
 // c, c+8, .., keeps those rows' running max and sum (reduced across the 8
 // threads of the row group with shuffles) and accumulates the rows'
 // output dims c, c+8, .. in registers; key tiles wholly masked by
-// causality or the window are never loaded.
+// causality or the window are never loaded. At hd = 256 (recurrentgemma)
+// the tiles take ~113 KB of shared memory, above the 48 KB default: the
+// launch opts in to the larger size.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -236,6 +238,7 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
     case 64: return launch<T, 64>(q, k, v, out, qs, ks, vs, os, B, H, KV, Sq, Skv, causal, window, st);
     case 80: return launch<T, 80>(q, k, v, out, qs, ks, vs, os, B, H, KV, Sq, Skv, causal, window, st);
     case 128: return launch<T, 128>(q, k, v, out, qs, ks, vs, os, B, H, KV, Sq, Skv, causal, window, st);
+    case 256: return launch<T, 256>(q, k, v, out, qs, ks, vs, os, B, H, KV, Sq, Skv, causal, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

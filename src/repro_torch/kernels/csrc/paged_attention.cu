@@ -10,7 +10,8 @@
 // query head h (kv head h / G):
 //
 //   s_t  = q_h . k_t / sqrt(hd)   over tokens t of pages p with
-//          page_slot[b, p] >= 0 and t < lengths[b]
+//          page_slot[b, p] >= 0, t < lengths[b] and, with a sliding
+//          window (window > 0), t >= lengths[b] - window
 //   m    = max_t s_t (-1e30 if none),  l = sum_t exp(s_t - m),
 //   acc  = sum_t exp(s_t - m) v_t      (f32; l = 0, acc = 0 if none)
 //
@@ -23,8 +24,8 @@
 // mistral-nemo: 2 flops a byte of bf16), far below the card's balance
 // point. The design: one block per (b, kv head) serves the head's G query
 // heads, so each K/V element is read from device memory once; pages are
-// walked in order, skipped when their slot is -1 or they start at or past
-// the length; each page is staged 64 tokens at a time through shared
+// walked in order, skipped when their slot is -1, they start at or past
+// the length or they end before the window; each page is staged 64 tokens at a time through shared
 // memory with 16-byte loads, all of a thread's loads of a tile issued
 // before any is stored (so a tile costs about one memory latency, not one
 // a loaded element), K rows padded by 16 bytes so the 16-byte reads of
@@ -83,7 +84,7 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
                        const int* __restrict__ lengths,
                        float* __restrict__ acc_out, float* __restrict__ m_out,
                        float* __restrict__ l_out, int H, int KV, int hd,
-                       int page, int n_pages, float scale) {
+                       int page, int n_pages, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV;
   const int b = blockIdx.x / KV;
@@ -112,16 +113,19 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
     l_s[g] = 0.f;
   }
   const int len = lengths[b];
+  const int lo = window > 0 ? len - window : 0;  // first live token
   const long long tok_stride = 2LL * KV * hd;
 
   for (int p = 0; p < n_pages; ++p) {
     const int slot = page_slot[static_cast<long long>(b) * n_pages + p];
     const int first = p * page;
     if (first >= len) break;  // pages are walked in order
-    if (slot < 0 || slot >= n_slots) continue;
+    if (slot < 0 || slot >= n_slots || first + page <= lo) continue;
     const T* base = pool + slot * slot_stride + static_cast<long long>(kvh) * hd;
     for (int t0 = 0; t0 < page && first + t0 < len; t0 += kTile) {
       const int n_live = min(min(kTile, page - t0), len - first - t0);
+      const int t_lo = max(0, lo - first - t0);  // tokens below the window
+      if (t_lo >= n_live) continue;
       __syncthreads();  // the previous tile is consumed; q/acc are set
       const int n_vec = kTile * vpr;
       for (int e0 = 0; e0 < n_vec; e0 += kThreads * kUnroll) {
@@ -154,7 +158,7 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
       for (int e = tid; e < G * kTile; e += kThreads) {
         const int g = e / kTile, t = e - (e / kTile) * kTile;
         float s = kNeg;
-        if (t < n_live) {
+        if (t < n_live && t >= t_lo) {
           const float* qg = q_s + g * hd;
           const T* kt = k_s + t * ks;
           float dot = 0.f;
@@ -175,8 +179,10 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
         const float s0 = pg[lane], s1 = pg[lane + 32];
         const float m_old = m_s[g];
         const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-        const float e0 = lane < n_live ? expf(s0 - m_new) : 0.f;
-        const float e1 = lane + 32 < n_live ? expf(s1 - m_new) : 0.f;
+        const float e0 =
+            lane < n_live && lane >= t_lo ? expf(s0 - m_new) : 0.f;
+        const float e1 = lane + 32 < n_live && lane + 32 >= t_lo
+                             ? expf(s1 - m_new) : 0.f;
         const float sum = warp_sum(e0 + e1);
         pg[lane] = e0;
         pg[lane + 32] = e1;
@@ -210,7 +216,7 @@ template <typename T>
 int launch(const float* q, const void* pool, long long slot_stride,
            int n_slots, const int* page_slot, const int* lengths, float* acc,
            float* m, float* l, int B, int H, int KV, int hd, int page,
-           int n_pages, cudaStream_t stream) {
+           int n_pages, int window, cudaStream_t stream) {
   const int G = H / KV;
   const size_t smem = f32_region_bytes(G, hd) +
                       sizeof(T) * (kTile * (hd + vec_elems<T>()) + kTile * hd);
@@ -223,7 +229,7 @@ int launch(const float* q, const void* pool, long long slot_stride,
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
   paged_attention_kernel<T><<<B * KV, kThreads, smem, stream>>>(
       q, static_cast<const T*>(pool), slot_stride, n_slots, page_slot, lengths,
-      acc, m, l, H, KV, hd, page, n_pages, scale);
+      acc, m, l, H, KV, hd, page, n_pages, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -238,22 +244,24 @@ const char* paged_attention_error_string(int code) {
 // q f32 [B, H, hd]; pool: element type `dtype` (0 = f32, 1 = bf16), slot 0
 // of the layer at `pool`, slots `slot_stride` elements apart, each
 // [page, 2, KV, hd] contiguous; page_slot int32 [B, n_pages]; lengths
-// int32 [B]; acc f32 [B, H, hd], m/l f32 [B, H]. Returns the launch error.
+// int32 [B]; window: tokens below lengths - window are masked (<= 0:
+// none); acc f32 [B, H, hd], m/l f32 [B, H]. Returns the launch error.
 int paged_attention_launch(const float* q, const void* pool, int dtype,
                            long long slot_stride, int n_slots,
                            const int* page_slot, const int* lengths,
                            float* acc, float* m, float* l, int B, int H,
                            int KV, int hd, int page, int n_pages,
-                           void* stream) {
+                           int window, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, pool, slot_stride, n_slots, page_slot, lengths,
-                         acc, m, l, B, H, KV, hd, page, n_pages, st);
+                         acc, m, l, B, H, KV, hd, page, n_pages, window,
+                         st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, pool, slot_stride, n_slots, page_slot,
                                  lengths, acc, m, l, B, H, KV, hd, page,
-                                 n_pages, st);
+                                 n_pages, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -34,7 +34,7 @@ __all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_cuda",
            "reset_flash_attention_launch_count"]
 
 SOURCE = CSRC / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 80, 128)  # head dims the kernel is compiled for
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # head dims the kernel is compiled for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LAUNCHES = [0]

@@ -13,7 +13,8 @@ stride, each slot's ``[page, 2, KV, hd]`` contiguous, so one layer of the
 engine's ``[slots, layers, page, 2, KV, hd]`` pools is passed as
 ``pool[:, li]`` and read in place; ``page_slot [B, n_pages]`` int32
 (``-1`` = skip the page); ``lengths [B]`` int32 (token ``t`` is live if
-``t < lengths[b]``). Output f32 ``acc [B, H, hd]``, ``m [B, H]``, ``l [B,
+``t < lengths[b]`` and, with a sliding ``window`` > 0, ``t >= lengths[b] -
+window``). Output f32 ``acc [B, H, hd]``, ``m [B, H]``, ``l [B,
 H]``.
 
 Dispatch: :func:`paged_attention` runs the plain version for CPU pools
@@ -58,7 +59,7 @@ def _library():
     if _LIB[0] is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         _LIB[0] = load_library(SOURCE, "paged_attention_launch",
-                               [p, p, i, ll, i, p, p, p, p, p] + [i] * 6
+                               [p, p, i, ll, i, p, p, p, p, p] + [i] * 7
                                + [p])
     return _LIB[0]
 
@@ -77,7 +78,8 @@ def _check(q, pool, page_slot, lengths) -> None:
 
 
 def paged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
-                         page_slot: torch.Tensor, lengths: torch.Tensor):
+                         page_slot: torch.Tensor, lengths: torch.Tensor,
+                         window: int = 0):
     """Launch the kernel: pool on the card (f32 or bf16), its slots
     contiguous inside, 16-byte aligned, with a head dim of whole 16-byte
     vectors; q, page_slot and lengths are moved to the pool's device if
@@ -108,7 +110,7 @@ def paged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
     err = lib.paged_attention_launch(
         qf.data_ptr(), pool.data_ptr(), _DTYPES[pool.dtype], pool.stride(0),
         slots, ps.data_ptr(), ln.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, H, KV, hd, page, ps.shape[1],
+        l.data_ptr(), B, H, KV, hd, page, ps.shape[1], int(window),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, SOURCE, err)
     _LAUNCHES[0] += 1
@@ -116,13 +118,16 @@ def paged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
 
 
 def paged_attention(q: torch.Tensor, pool: torch.Tensor,
-                    page_slot: torch.Tensor, lengths: torch.Tensor):
-    """The partial ``(acc, m, l)`` over the pool's pages: the plain version
-    for a CPU pool, the kernel for a CUDA pool."""
+                    page_slot: torch.Tensor, lengths: torch.Tensor,
+                    window: int = 0):
+    """The partial ``(acc, m, l)`` over the pool's pages (the last
+    ``window`` tokens of each sequence only, with a ``window`` > 0): the
+    plain version for a CPU pool, the kernel for a CUDA pool."""
     _check(q, pool, page_slot, lengths)
     dev = pool.device
     if dev.type == "cpu" or (dev.type == "cuda" and plain_selected()):
-        return paged_attention_ref(q.to(dev), pool, page_slot, lengths)
+        return paged_attention_ref(q.to(dev), pool, page_slot, lengths,
+                                   window)
     if dev.type != "cuda":
         raise ValueError(f"no paged-attention path for device {dev}")
-    return paged_attention_cuda(q, pool, page_slot, lengths)
+    return paged_attention_cuda(q, pool, page_slot, lengths, window)

@@ -11,6 +11,11 @@
   distance) dominance count, the golden of ``csrc/reuse_distance.cu``.
 - :func:`cache_scan_ref`: the fused tier-1 cache scan, the golden of
   ``csrc/cache_scan.cu``.
+- :func:`ssd_ref`, :func:`rglru_ref`: the sequential Mamba-2 SSD and
+  RG-LRU recurrences, one step at a time; the chunk-by-chunk plain
+  versions that the kernels mirror live beside their wrappers
+  (:mod:`repro_torch.kernels.ssd_scan`, :mod:`repro_torch.kernels.
+  rglru_scan`).
 
 Cache scan: one request step of the storage engine on a batch of shard rows, written
 with whole-tensor selects (``torch.where`` on one-hot masks) the way the
@@ -35,6 +40,7 @@ from repro_torch.core import online_learning as _ol
 from repro_torch.kernels import threefry
 
 __all__ = ["attention_ref", "paged_attention_ref", "page_copy_ref",
+           "softplus", "ssd_ref", "rglru_ref",
            "DIST_INF", "reuse_distance_ref", "fused_cache_step",
            "fused_fold", "cache_scan_ref", "NOISE_CHUNK"]
 
@@ -80,13 +86,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def paged_attention_ref(q: torch.Tensor, pool: torch.Tensor,
-                        page_slot: torch.Tensor, lengths: torch.Tensor):
+                        page_slot: torch.Tensor, lengths: torch.Tensor,
+                        window: int = 0):
     """Partial decode attention over the pages of one pool.
 
     q ``[B, H, hd]``; pool ``[slots, page, 2, KV, hd]`` (any slot stride,
     e.g. one layer of a ``[slots, Lp, page, 2, KV, hd]`` pool);
     ``page_slot [B, n_pages]`` int32 (``-1`` = skip the page); ``lengths
-    [B]`` int32: token ``t`` is live if ``t < lengths[b]``. Returns f32
+    [B]`` int32: token ``t`` is live if ``t < lengths[b]`` and, with a
+    ``window`` > 0, ``t >= lengths[b] - window``. Returns f32
     ``(acc [B, H, hd], m [B, H], l [B, H])``; a row with no live token has
     ``m = -1e30``, ``l = 0``, ``acc = 0``."""
     B, H, hd = q.shape
@@ -99,7 +107,10 @@ def paged_attention_ref(q: torch.Tensor, pool: torch.Tensor,
     v = data[..., 1, :, :].reshape(B, n_pages * page, KV, hd)
     tok = torch.arange(n_pages * page, device=pool.device)
     valid = (ps >= 0).repeat_interleave(page, dim=1)
-    valid &= tok[None, :] < lengths.to(pool.device)[:, None]
+    n = lengths.to(pool.device)[:, None]
+    valid &= tok[None, :] < n
+    if window > 0:
+        valid &= tok[None, :] >= n - window
     qf = q.to(torch.float32).reshape(B, KV, G, hd)
     s = torch.einsum("bkgh,btkh->bkgt", qf, k.to(torch.float32))
     s = s / math.sqrt(hd)
@@ -110,6 +121,52 @@ def paged_attention_ref(q: torch.Tensor, pool: torch.Tensor,
     l = p.sum(-1)
     acc = torch.einsum("bkgt,btkh->bkgh", p, v.to(torch.float32))
     return acc.reshape(B, H, hd), m.reshape(B, H), l.reshape(B, H)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``max(x, 0) + log1p(exp(-|x|))``, the form
+    of ``jax.nn.softplus``."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def ssd_ref(x, dt, A, Bm, Cm) -> torch.Tensor:
+    """Sequential SSD scan, one step at a time in f32: ``h_t = exp(dt_t
+    A) h_{t-1} + dt_t B_t x_t``, ``y_t = C_t . h_t``. x ``[B, S, H, P]``,
+    dt ``[B, S, H]``, A ``[H]``, Bm/Cm ``[B, S, N]``; returns y ``[B, S,
+    H, P]`` f32."""
+    f = torch.float32
+    Bsz, S, H, P = x.shape
+    xf, dtf, Af = x.to(f), dt.to(f), A.to(f)
+    Bf, Cf = Bm.to(f), Cm.to(f)
+    h = torch.zeros((Bsz, H, Bm.shape[-1], P), dtype=f, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af)                       # [B, H]
+        h = h * decay[..., None, None] + torch.einsum(
+            "bn,bhp->bhnp", Bf[:, t], dtf[:, t, :, None] * xf[:, t])
+        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=1)
+
+
+def rglru_ref(u, w_a, b_a, w_x, b_x, lam) -> torch.Tensor:
+    """Sequential RG-LRU recurrence in f32: ``h_t = a_t h_{t-1} + b_t``
+    with ``r, i = sigmoid(u w + b)``, ``log a = -8 softplus(lam) r``, ``b
+    = sqrt(max(1 - a^2, 1e-12)) i u``. u ``[B, S, W]`` -> h ``[B, S, W]``
+    f32."""
+    f = torch.float32
+    uf = u.to(f)
+    r = torch.sigmoid(uf * w_a.to(f) + b_a.to(f))
+    i = torch.sigmoid(uf * w_x.to(f) + b_x.to(f))
+    log_a = -8.0 * softplus(lam.to(f)) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (
+        i * uf)
+    h = torch.zeros_like(uf[:, 0])
+    hs = []
+    for t in range(u.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 def page_copy_ref(dst: torch.Tensor, src: torch.Tensor,

@@ -8,7 +8,9 @@ weights are random, drawn from a seed (no download). Prints the prefill
 and decode times, the tier-1 / tier-2 page reads, evictions and
 write-backs, the OL learner's weights and the kernels' launch counts: the
 paper's fig. 2 pipeline end to end. Without ``--full`` the architecture's
-reduced variant runs.
+reduced variant runs. ``--arch mamba2-370m`` (no attention, so no KV
+pools) and ``--arch recurrentgemma-9b`` (RG-LRU blocks and sliding-window
+attention) run their scans through the SSD and RG-LRU kernels.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import page_gather as pg
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import rglru_scan as rs
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models.params import init_params
 from repro_torch.serving import kvpool as kvp
 from repro_torch.serving.engine import (DecodeState, ServeConfig,
@@ -90,9 +94,9 @@ def serve(cfg: ModelConfig, params: dict, prompts, *, new: int,
                                   tok if forced is None else forced[:, t])
         toks.append(tok)
         lps.append(lp)
-        if t % promote_every == promote_every - 1:
-            state = DecodeState(kv=kvp.promote_pages(state.kv, spec,
-                                                     sc.n_promote))
+        if state.kv is not None and t % promote_every == promote_every - 1:
+            state = state._replace(kv=kvp.promote_pages(state.kv, spec,
+                                                        sc.n_promote))
     _sync(dev)
     decode_s = time.perf_counter() - t0
     return ServeResult(
@@ -104,13 +108,17 @@ def serve(cfg: ModelConfig, params: dict, prompts, *, new: int,
 def launch_counts() -> dict:
     return dict(flash_attention=fa.flash_attention_launch_count(),
                 paged_attention=pa.paged_attention_launch_count(),
-                page_copy=pg.page_copy_launch_count())
+                page_copy=pg.page_copy_launch_count(),
+                ssd_scan=ss.ssd_scan_launch_count(),
+                rglru_scan=rs.rglru_scan_launch_count())
 
 
 def reset_launch_counts() -> None:
     fa.reset_flash_attention_launch_count()
     pa.reset_paged_attention_launch_count()
     pg.reset_page_copy_launch_count()
+    ss.reset_ssd_scan_launch_count()
+    rs.reset_rglru_scan_launch_count()
 
 
 def main(argv=None) -> None:
@@ -139,17 +147,21 @@ def main(argv=None) -> None:
                 promote_every=args.promote_every)
     kv = res.state.kv
     steps = args.new - 1
-    t1, t2 = int(kv.t1_reads[0]), int(kv.t2_reads[0])
     print(f"arch={cfg.name} requests={args.requests} prompt={args.prompt} "
           f"new={args.new} kv={cfg.param_dtype} device="
           f"{params['embed'].device}")
     print(f"prefill {res.prefill_s:.3f}s; decode {res.decode_s:.3f}s "
           f"({args.requests * steps / max(res.decode_s, 1e-9):.1f} tok/s, "
           f"{1e3 * res.decode_s / max(steps, 1):.2f} ms/step)")
-    print(f"tier-1 page reads {t1}, tier-2 (miss) {t2} -> hit rate "
-          f"{100 * t1 / max(t1 + t2, 1):.1f}%; evictions "
-          f"{int(kv.evictions[0])}, write-backs {int(kv.writebacks[0])}")
-    print(f"OL weights (lru/lfu/random): {kv.ols.weights.tolist()}")
+    if kv is None:
+        print("no attention layers: no KV pools, no tier traffic")
+    else:
+        t1, t2 = int(kv.t1_reads[0]), int(kv.t2_reads[0])
+        print(f"tier-1 page reads {t1}, tier-2 (miss) {t2} -> hit rate "
+              f"{100 * t1 / max(t1 + t2, 1):.1f}%; evictions "
+              f"{int(kv.evictions[0])}, write-backs "
+              f"{int(kv.writebacks[0])}")
+        print(f"OL weights (lru/lfu/random): {kv.ols.weights.tolist()}")
     print(f"kernel launches: {launch_counts()}")
     print(f"first generations: {res.tokens[:2, :8].tolist()}")
 

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dense", "rms_norm", "rope_tables", "apply_rope", "embed",
-           "unembed_greedy", "mlp_swiglu"]
+           "unembed_greedy", "mlp_swiglu", "causal_conv1d"]
 
 _F32 = torch.float32
 # Vocabulary rows of the unembedding converted to f32 at a time.
@@ -85,3 +85,15 @@ def mlp_swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     u = dense(x, w_up)
     h = F.silu(g.to(_F32)).to(x.dtype) * u
     return torch.matmul(h, w_down)
+
+
+def causal_conv1d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal convolution of the recurrent blocks: x ``[B, S,
+    W]``, kernel ``[K, W]``; summed in f32 tap by tap, returned in x's
+    dtype."""
+    K = kernel.shape[0]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros(x.shape, dtype=_F32, device=x.device)
+    for k in range(K):
+        out = out + xp[:, k:k + x.shape[1]].to(_F32) * kernel[k].to(_F32)
+    return out.to(x.dtype)

@@ -15,7 +15,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.device import resolve_device
 
 __all__ = ["ParamDef", "pad_vocab", "block_defs", "model_layout",
@@ -25,7 +25,7 @@ __all__ = ["ParamDef", "pad_vocab", "block_defs", "model_layout",
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]  # per-layer (unstacked) shape
-    init: str = "normal"    # normal | zeros
+    init: str = "normal"    # normal | zeros | ones | lambda
     scale: float = 0.02
 
 
@@ -54,6 +54,46 @@ def _mlp_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def _rglru_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    w = d  # lru width = d_model
+    return {
+        "w1": ParamDef((d, w), scale=d ** -0.5),
+        "w2": ParamDef((d, w), scale=d ** -0.5),
+        "w_out": ParamDef((w, d), scale=w ** -0.5),
+        "conv": ParamDef((4, w), scale=0.1),
+        "w_a": ParamDef((w,), scale=0.5),
+        "b_a": ParamDef((w,), init="zeros"),
+        "w_x": ParamDef((w,), scale=0.5),
+        "b_x": ParamDef((w,), init="zeros"),
+        "lam": ParamDef((w,), init="lambda"),
+        "norm": ParamDef((d,), init="zeros"),
+    }
+
+
+def _ssd_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    s = cfg.ssm or SSMConfig()
+    di = s.expand * d
+    H = di // s.head_dim
+    N = s.state_dim
+    return {
+        "w_z": ParamDef((d, di), scale=d ** -0.5),
+        "w_x": ParamDef((d, di), scale=d ** -0.5),
+        "w_bc": ParamDef((d, 2 * N), scale=d ** -0.5),
+        "w_dt": ParamDef((d, H), scale=d ** -0.5),
+        "conv_x": ParamDef((s.conv_width, di), scale=0.1),
+        "conv_b": ParamDef((s.conv_width, N), scale=0.1),
+        "conv_c": ParamDef((s.conv_width, N), scale=0.1),
+        "A_log": ParamDef((H,), init="ones"),
+        "dt_bias": ParamDef((H,), init="zeros"),
+        "D": ParamDef((H,), init="ones"),
+        "norm_g": ParamDef((di,), init="zeros"),
+        "w_out": ParamDef((di, d), scale=di ** -0.5),
+        "norm": ParamDef((d,), init="zeros"),
+    }
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.moe is not None:
         raise NotImplementedError(
@@ -65,15 +105,16 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def block_defs(kind: str, cfg: ModelConfig) -> dict:
-    """Parameter defs for one block of the given kind (attention blocks
-    with a dense SwiGLU FFN; the recurrent and SSD blocks wait for their
-    kernels, ROADMAP item 11.2)."""
+    """Parameter defs for one block of the given kind: attention and
+    RG-LRU blocks with a dense SwiGLU FFN, SSD blocks without one."""
     _check_supported(cfg)
-    if not kind.startswith("attn"):
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP item 11.2, "
-            "with its scan kernel)")
-    return {**_attn_defs(cfg), **_mlp_defs(cfg)}
+    if kind.startswith("attn"):
+        return {**_attn_defs(cfg), **_mlp_defs(cfg)}
+    if kind == "rglru":
+        return {**_rglru_defs(cfg), **_mlp_defs(cfg)}
+    if kind == "ssd":
+        return _ssd_defs(cfg)
+    raise ValueError(kind)
 
 
 def model_layout(cfg: ModelConfig) -> tuple[int, tuple[str, ...]]:
@@ -99,28 +140,42 @@ def build_defs(cfg: ModelConfig) -> dict:
     return tree
 
 
+def _draw(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:
+    """One layer's f32 draw: normal x scale, or the RG-LRU's Lambda, with
+    ``a = exp(-8 softplus(Lambda))`` uniform in [0.9, 0.999]."""
+    if d.init == "lambda":
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32,
+                       device=device) * (0.999 - 0.9) + 0.9
+        x = -torch.log(u) / 8.0
+        return torch.log(torch.expm1(torch.clamp(x, min=1e-8)))
+    return torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                       device=device) * d.scale
+
+
 def _leaf_init(d: ParamDef, shape, dtype, gen: torch.Generator,
                device) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
     out = torch.empty(shape, dtype=dtype, device=device)
     # One stacked layer at a time, so the f32 draw stays one layer large.
     rows = out.reshape((-1,) + d.shape) if len(shape) > len(d.shape) else (
         out[None])
     for row in rows:
-        row.copy_(torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                              device=device) * d.scale)
+        row.copy_(_draw(d, gen, device))
     return out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Random parameters: normal x scale per leaf (zeros for the norms), in
-    ``cfg.param_dtype``, drawn from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (``None`` = the card). The draws are not JAX's:
-    the same seed gives other numbers than ``repro.models.params.
-    init_params`` (carry the reference's parameters over with
-    :func:`repro_torch.convert.params_from_numpy` where both must compute
-    the same model)."""
+    """Random parameters: normal x scale per leaf (zeros for the norms,
+    ones for the SSD's ``A_log`` and ``D``, the RG-LRU's ``Lambda`` as the
+    reference draws it), in ``cfg.param_dtype``, drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (``None`` = the
+    card). The draws are not JAX's: the same seed gives other numbers than
+    ``repro.models.params.init_params`` (carry the reference's parameters
+    over with :func:`repro_torch.convert.params_from_numpy` where both must
+    compute the same model)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

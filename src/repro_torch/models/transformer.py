@@ -1,49 +1,65 @@
-"""Model trunk for attention-only dense models on one card.
+"""Model trunk on one card: attention, RG-LRU and SSD blocks.
 
 A model is a cycled ``block_pattern`` whose parameters are stacked per
 pattern position (``[reps, ...]``) plus an unstacked tail, with an
-embedding and an unembedding. Each block is pre-norm self-attention (RoPE,
-GQA) and a SwiGLU FFN. The prefill runs its attention through the flash
-kernel (:mod:`repro_torch.kernels.flash_attention`: the kernel on the
-card, its plain version on the CPU); :func:`fwd_hidden`, the independent
-full forward that decode is checked against, runs the plain
+embedding and an unembedding. An attention block is pre-norm
+self-attention (RoPE, GQA; sliding-window for ``attn_swa`` /
+``attn_local``) and a SwiGLU FFN; an RG-LRU block is the pre-norm Griffin
+recurrent block and a SwiGLU FFN; an SSD block is the pre-norm Mamba-2
+block alone. The prefill runs its attention through the flash kernel
+(:mod:`repro_torch.kernels.flash_attention`) and its scans through the
+SSD and RG-LRU kernels (the kernels on the card, their plain versions on
+the CPU); :func:`fwd_hidden`, the independent full forward that decode is
+checked against, runs the plain
 :func:`~repro_torch.models.attention.blockwise_attention`, as the
 reference's does.
 
-The reference's MoE, RG-LRU, SSD, encoder and VLM-prefix blocks are not
-ported yet (ROADMAP item 11.2); :func:`repro_torch.models.params.
-block_defs` raises for them.
+The reference's MoE, encoder and VLM-prefix blocks are not ported yet
+(ROADMAP item 11.2); :func:`repro_torch.models.params.block_defs` raises
+for them.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import params as pm
 from repro_torch.models.attention import blockwise_attention
 from repro_torch.models.layers import (apply_rope, dense, embed, mlp_swiglu,
                                        rms_norm, rope_tables)
+from repro_torch.models.rglru import recurrent_block
+from repro_torch.models.ssd import ssd_block
 
-__all__ = ["layers", "apply_block", "fwd_hidden"]
+__all__ = ["Layer", "layers", "apply_block", "fwd_hidden"]
 
 
-def layers(params: dict, cfg: ModelConfig) -> Iterator[tuple]:
-    """``(kind, layer params, attention layer index)`` for every layer in
-    order: the stacked superblocks, then the tail."""
+class Layer(NamedTuple):
+    kind: str
+    p: dict                 # the layer's parameters
+    li: Optional[int]       # attention layer index in the pools (else None)
+    pos: int                # pattern position (stacked) or tail index
+    rep: Optional[int]      # repeat of the pattern; None in the tail
+
+
+def layers(params: dict, cfg: ModelConfig) -> Iterator[Layer]:
+    """Every layer in order: the stacked superblocks, then the tail."""
     attn_pp = tuple(i for i, k in enumerate(cfg.block_pattern)
                     if k.startswith("attn"))
     reps, tail = pm.model_layout(cfg)
     for r in range(reps):
         for i, kind in enumerate(cfg.block_pattern):
             p = {k: w[r] for k, w in params["blocks"][i].items()}
-            yield kind, p, r * len(attn_pp) + attn_pp.index(i)
+            li = (r * len(attn_pp) + attn_pp.index(i)
+                  if kind.startswith("attn") else None)
+            yield Layer(kind, p, li, i, r)
     for i, kind in enumerate(tail):
-        li = reps * len(attn_pp) + sum(1 for k in tail[:i]
-                                       if k.startswith("attn"))
-        yield kind, params["tail"][i], li
+        li = (reps * len(attn_pp) + sum(1 for k in tail[:i]
+                                        if k.startswith("attn"))
+              if kind.startswith("attn") else None)
+        yield Layer(kind, params["tail"][i], li, i, None)
 
 
 def _flash(q, k, v, *, causal: bool, window: Optional[int]):
@@ -75,17 +91,27 @@ def _ffn(x, p, cfg: ModelConfig):
 
 
 def apply_block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
-                attend: Callable = _flash):
-    """One attention block (``rope``: the positions' :func:`~repro_torch.
-    models.layers.rope_tables`). Returns ``(x, (k, v))``: the new residual
-    stream and the block's RoPE'd keys and values ``[B, S, KV, hd]`` (the
-    paged pools' layout)."""
-    if not kind.startswith("attn"):
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP item 11.2)")
-    delta, kv = _self_attention(x, p, cfg, rope, kind=kind, attend=attend)
-    x = x + delta
-    return x + _ffn(x, p, cfg), kv
+                attend: Callable = _flash, capture: bool = False):
+    """One block over a sequence (``rope``: the positions' :func:`~
+    repro_torch.models.layers.rope_tables`). Returns ``(x, extras)``: the
+    new residual stream, and for an attention block its RoPE'd keys and
+    values ``[B, S, KV, hd]`` (the paged pools' layout), for a recurrent
+    block its decode state with ``capture`` (else None)."""
+    if kind.startswith("attn"):
+        delta, kv = _self_attention(x, p, cfg, rope, kind=kind,
+                                    attend=attend)
+        x = x + delta
+        return x + _ffn(x, p, cfg), kv
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    if kind == "rglru":
+        delta, state = recurrent_block(h, p, capture=capture)
+        x = x + delta
+        return x + _ffn(x, p, cfg), state
+    if kind == "ssd":
+        delta, state = ssd_block(h, p, cfg.ssm or SSMConfig(),
+                                 capture=capture)
+        return x + delta, state
+    raise ValueError(kind)
 
 
 def fwd_hidden(params: dict, tokens: torch.Tensor,
@@ -96,6 +122,7 @@ def fwd_hidden(params: dict, tokens: torch.Tensor,
     x = embed(tokens, params["embed"])
     rope = rope_tables(torch.arange(x.shape[1], device=x.device)[None, :],
                        cfg.head_dim, cfg.rope_theta)
-    for kind, p, _ in layers(params, cfg):
-        x, _ = apply_block(kind, x, p, cfg, rope, attend=blockwise_attention)
+    for layer in layers(params, cfg):
+        x, _ = apply_block(layer.kind, x, layer.p, cfg, rope,
+                           attend=blockwise_attention)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)

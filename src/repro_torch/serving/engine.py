@@ -16,26 +16,34 @@ reference reads both tiers in one pass (``read_pages`` +
 ``attention_partial``); the split sums in another order, so the two agree
 to a tolerance, not bit for bit.
 
-Scope: attention-only dense models with full attention, one card
+Models with RG-LRU or SSD blocks carry each recurrent layer's state
+(:class:`DecodeState`): the prefill captures it, decode steps it. A model
+without attention (mamba2) has no pools at all (``kv=None``). Where every
+attention block is sliding-window, decode reads only the pages of the
+window, and the paged kernel masks the tokens before it.
+
+Scope: dense models of attention, RG-LRU and SSD blocks, one card
 (``page_axes=()``), KV in the parameters' dtype. Everything else raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.core import online_learning as ol
-from repro_torch.device import to_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import params as pm
 from repro_torch.models.attention import Partial, combine_partials
 from repro_torch.models.layers import (apply_rope, dense, embed, mlp_swiglu,
                                        rms_norm, rope_tables, unembed_greedy)
+from repro_torch.models.rglru import recurrent_block_step
+from repro_torch.models.ssd import ssd_block_step
 from repro_torch.models.transformer import apply_block, layers
 from repro_torch.serving import kvpool as kvp
 from repro_torch.serving.kvpool import KVSpec, PagedKV
@@ -55,7 +63,14 @@ class ServeConfig:
 
 
 class DecodeState(NamedTuple):
-    kv: PagedKV
+    """Decode state: the paged pools (None for attention-free models) and
+    the recurrent blocks' states, in the reference's layout: ``rec`` one
+    dict per pattern position with each leaf stacked ``[reps, ...]``
+    (``{}`` for attention), ``rec_tail`` one dict per tail layer. The
+    decode step updates the states in place."""
+    kv: Optional[PagedKV]
+    rec: list
+    rec_tail: list
 
 
 def check_supported(cfg: ModelConfig, sc: ServeConfig) -> None:
@@ -74,41 +89,77 @@ def check_supported(cfg: ModelConfig, sc: ServeConfig) -> None:
         raise NotImplementedError(
             "encoder-decoder and VLM-prefix serving are not ported yet "
             "(ROADMAP item 11.1)")
-    for kind in cfg.block_pattern:
-        if kind in ("rglru", "ssd"):
-            raise NotImplementedError(
-                f"{kind} blocks are not ported yet (ROADMAP item 11.2, with "
-                "their scan kernels)")
-        if kind in ("attn_swa", "attn_local"):
-            raise NotImplementedError(
-                "windowed attention reads are not ported yet (ROADMAP item "
-                "11.1)")
+
+
+def _needs_kv(cfg: ModelConfig) -> bool:
+    return any(k.startswith("attn") for k in cfg.layer_kinds())
 
 
 def make_kv_spec(cfg: ModelConfig, sc: ServeConfig) -> KVSpec:
     """Static pool geometry for an (arch, serve shape) cell on one card
-    (pages not sharded; full attention: every page is visible to
-    decode)."""
+    (pages not sharded). Models whose attention is all sliding-window
+    (alone or beside recurrent blocks) read only the pages of the window:
+    ``read_pages`` = ceil(window / page) + 1, as the reference sets it."""
     attn_pp = kvp.n_attn_layers(cfg)
     reps, tail = pm.model_layout(cfg)
     n_attn = reps * len(attn_pp) + sum(1 for k in tail
                                        if k.startswith("attn"))
     n_pages = -(-sc.max_seq // cfg.page_size)
     owned = sc.batch_local * n_pages + 1
+    read_pages = window = 0
+    if all(k in ("attn_swa", "attn_local", "rglru", "ssd")
+           for k in cfg.block_pattern) and attn_pp:
+        read_pages = -(-cfg.window // cfg.page_size) + 1
+        window = cfg.window
     return KVSpec(
         b_local=sc.batch_local, n_pages=n_pages, page_size=cfg.page_size,
         n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
         layers_per_slot=max(n_attn, 1),
         hbm_slots=max(2, int(owned * sc.hbm_fraction)), t2_slots=owned + 1,
+        read_pages=read_pages, window=window,
         dtype=cfg.param_dtype if sc.kv_dtype == "auto" else sc.kv_dtype)
+
+
+def _rec_state_one(kind: str, cfg: ModelConfig, B: int, device) -> dict:
+    """A zero decode state of one recurrent layer ({} for attention)."""
+    dt = getattr(torch, cfg.param_dtype)
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if kind == "rglru":
+        w = cfg.d_model
+        return {"h": z((B, w), torch.float32), "conv": z((B, 3, w), dt)}
+    if kind == "ssd":
+        s = cfg.ssm or SSMConfig()
+        di = s.expand * cfg.d_model
+        return {"h": z((B, di // s.head_dim, s.state_dim, s.head_dim),
+                       torch.float32),
+                "conv": z((B, s.conv_width - 1, di + 2 * s.state_dim), dt)}
+    return {}
 
 
 def init_decode_state(cfg: ModelConfig, sc: ServeConfig, seed: int = 0, *,
                       device=None) -> DecodeState:
-    """Empty pools on ``device`` (``None`` = the card)."""
+    """Empty pools and zero recurrent states on ``device`` (``None`` = the
+    card)."""
     check_supported(cfg, sc)
-    return DecodeState(kv=kvp.init_paged_kv(make_kv_spec(cfg, sc), seed,
-                                            device=device))
+    device = resolve_device(device)
+    reps, tail = pm.model_layout(cfg)
+    B = sc.batch_local
+    kv = (kvp.init_paged_kv(make_kv_spec(cfg, sc), seed, device=device)
+          if _needs_kv(cfg) else None)
+    rec = [{k: v.expand((reps,) + v.shape).clone()
+            for k, v in _rec_state_one(kind, cfg, B, device).items()}
+           for kind in cfg.block_pattern]
+    rec_tail = [_rec_state_one(kind, cfg, B, device) for kind in tail]
+    return DecodeState(kv=kv, rec=rec, rec_tail=rec_tail)
+
+
+def _layer_state(state: DecodeState, layer) -> dict:
+    """The decode state of one recurrent layer (views into ``state``)."""
+    if layer.rep is None:
+        return state.rec_tail[layer.pos]
+    return {k: v[layer.rep] for k, v in state.rec[layer.pos].items()}
 
 
 def _unembedding(params: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -117,7 +168,7 @@ def _unembedding(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _decode_attention(x, p, cfg: ModelConfig, pools, index, tables, li,
-                      rope):
+                      rope, window: int):
     """One attention block at decode time over both tiers."""
     B, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -129,8 +180,10 @@ def _decode_attention(x, p, cfg: ModelConfig, pools, index, tables, li,
     k_new = apply_rope(k_new, rope)[:, 0]
     kvp.write_token_kv(pools[0], (k_new, v_new), index, li)
     slot1, slot2, live = tables
-    part1 = Partial(*pa.paged_attention(q, pools[0][:, li], slot1, live))
-    part2 = Partial(*pa.paged_attention(q, pools[1][:, li], slot2, live))
+    part1 = Partial(*pa.paged_attention(q, pools[0][:, li], slot1, live,
+                                        window))
+    part2 = Partial(*pa.paged_attention(q, pools[1][:, li], slot2, live,
+                                        window))
     o = combine_partials([part1, part2])           # [B, H, hd] f32
     return dense(o.to(x.dtype).reshape(B, H * hd), p["wo"])
 
@@ -140,12 +193,29 @@ def _decode_ffn(x, p, cfg: ModelConfig):
     return mlp_swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
 
+def _decode_tables(kv: PagedKV, spec: KVSpec, dev) -> tuple:
+    """The two tier launches' page tables and live counts, on ``dev``:
+    tier 1 reads the resident pages, tier 2 the pages that are not
+    resident, both only inside the read window ``[lo, lo + read_pages)``
+    (every page without one) and both counting the token just written."""
+    slot1, nonres = kv.page_slot, kv.page_slot < 0
+    if spec.read_pages > 0:
+        lo = kvp.read_window_start(kv.lengths, spec)[:, None]
+        p = torch.arange(spec.n_pages)[None, :]
+        in_win = (p >= lo) & (p < lo + spec.read_pages)
+        slot1 = torch.where(in_win, slot1, -1)
+        nonres &= in_win
+    slot2 = torch.where(nonres, kv.t2_slot, -1)
+    return tuple(to_device(t, dev) for t in (slot1, slot2, kv.lengths + 1))
+
+
 def make_decode_step(cfg: ModelConfig, sc: ServeConfig):
     """The decode step ``(params, DecodeState, tokens [B]) -> (DecodeState,
     (next_tokens [B] int32, logprobs [B] f32))``, on the parameters'
-    device. The pools are updated in place."""
+    device. The pools and the recurrent states are updated in place."""
     check_supported(cfg, sc)
     spec = make_kv_spec(cfg, sc)
+    ssm = cfg.ssm or SSMConfig()
     cfg_ol = ol.OLConfig()
     # The learner's beta ** losses table, as wide as an epoch's most
     # mispredictions: every expert can mispredict once per missed page.
@@ -154,26 +224,39 @@ def make_decode_step(cfg: ModelConfig, sc: ServeConfig):
 
     def step(params, state: DecodeState, tokens):
         dev = params["embed"].device
-        kv, plan = kvp.alloc_step(state.kv, spec, cfg_ol, pw)
-        pools = (kv.pool1, kv.pool2)
-        kvp.write_back_evicted(pools, plan)
-        index = kvp.token_index(plan, kv.lengths, spec, dev)
-        # Tier 1 reads the resident pages, tier 2 the pages that are not
-        # resident; both count the token just written.
-        slot2 = torch.where(kv.page_slot < 0, kv.t2_slot, -1)
-        tables = tuple(to_device(t, dev)
-                       for t in (kv.page_slot, slot2, kv.lengths + 1))
-        rope = rope_tables(to_device(kv.lengths, dev)[:, None], cfg.head_dim,
-                           cfg.rope_theta)
+        kv = state.kv
+        if kv is not None:
+            kv, plan = kvp.alloc_step(kv, spec, cfg_ol, pw)
+            pools = (kv.pool1, kv.pool2)
+            kvp.write_back_evicted(pools, plan)
+            index = kvp.token_index(plan, kv.lengths, spec, dev)
+            tables = _decode_tables(kv, spec, dev)
+            rope = rope_tables(to_device(kv.lengths, dev)[:, None],
+                               cfg.head_dim, cfg.rope_theta)
         x = embed(to_device(torch.as_tensor(tokens), dev), params["embed"])
-        for _, p, li in layers(params, cfg):
-            x = x + _decode_attention(x, p, cfg, pools, index, tables, li,
-                                      rope)
-            x = x + _decode_ffn(x, p, cfg)
+        for layer in layers(params, cfg):
+            p = layer.p
+            if layer.kind.startswith("attn"):
+                x = x + _decode_attention(x, p, cfg, pools, index, tables,
+                                          layer.li, rope, spec.window)
+                x = x + _decode_ffn(x, p, cfg)
+                continue
+            st = _layer_state(state, layer)
+            h = rms_norm(x, p["norm"], cfg.norm_eps)
+            if layer.kind == "rglru":
+                out, new = recurrent_block_step(h, st, p)
+                x = x + out
+                x = x + _decode_ffn(x, p, cfg)
+            else:
+                out, new = ssd_block_step(h, st, p, ssm)
+                x = x + out
+            for k, v in new.items():
+                st[k].copy_(v)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         tok, logprob = unembed_greedy(x, _unembedding(params, cfg))
-        kv = kv._replace(lengths=kv.lengths + 1, t=kv.t + 1)
-        return DecodeState(kv=kv), (tok, logprob)
+        if kv is not None:
+            kv = kv._replace(lengths=kv.lengths + 1, t=kv.t + 1)
+        return state._replace(kv=kv), (tok, logprob)
 
     return step
 
@@ -181,29 +264,50 @@ def make_decode_step(cfg: ModelConfig, sc: ServeConfig):
 def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
     """The prefill ``(params, tokens [B, S]) -> (DecodeState, (first_token,
     logprob))``: a full forward over the prompt that fills both pools and
-    sets the tier-1 residency (the newest pages resident)."""
+    sets the tier-1 residency (the newest pages resident), and captures
+    each recurrent layer's decode state."""
     check_supported(cfg, sc)
     spec = make_kv_spec(cfg, sc)
+    reps, tail = pm.model_layout(cfg)
+    needs_kv = _needs_kv(cfg)
 
     def step(params, tokens):
         dev = params["embed"].device
         tokens = torch.as_tensor(tokens).to(dev)
         B, S = tokens.shape
         x = embed(tokens, params["embed"])
-        kv = kvp.init_paged_kv(spec, device=dev)
-        kv = kvp.prefill_residency(kv, spec,
-                                   torch.full((B,), S, dtype=torch.int32))
+        kv = None
+        if needs_kv:
+            kv = kvp.init_paged_kv(spec, device=dev)
+            kv = kvp.prefill_residency(kv, spec,
+                                       torch.full((B,), S, dtype=torch.int32))
         rope = rope_tables(torch.arange(S, device=dev)[None, :],
                            cfg.head_dim, cfg.rope_theta)
         pad_s = (-S) % spec.page_size
-        for kind, p, li in layers(params, cfg):
-            x, (k, v) = apply_block(kind, x, p, cfg, rope)
-            if pad_s:
-                k = F.pad(k, (0, 0, 0, 0, 0, pad_s))
-                v = F.pad(v, (0, 0, 0, 0, 0, pad_s))
-            kvp.prefill_write((kv.pool1, kv.pool2), kv, spec, li, k, v)
+        states = [[None] * reps for _ in cfg.block_pattern]
+        rec_tail = []
+        for layer in layers(params, cfg):
+            x, ex = apply_block(layer.kind, x, layer.p, cfg, rope,
+                                capture=True)
+            st = {}
+            if layer.kind.startswith("attn"):
+                k, v = ex
+                if pad_s:
+                    k = F.pad(k, (0, 0, 0, 0, 0, pad_s))
+                    v = F.pad(v, (0, 0, 0, 0, 0, pad_s))
+                kvp.prefill_write((kv.pool1, kv.pool2), kv, spec, layer.li,
+                                  k, v)
+            else:
+                st = ex
+            if layer.rep is None:
+                rec_tail.append(st)
+            else:
+                states[layer.pos][layer.rep] = st
+        rec = [{k: torch.stack([s[k] for s in reps_st])
+                for k in reps_st[0]} if reps_st else {}
+               for reps_st in states]
         x = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
         tok, logprob = unembed_greedy(x, _unembedding(params, cfg))
-        return DecodeState(kv=kv), (tok, logprob)
+        return DecodeState(kv=kv, rec=rec, rec_tail=rec_tail), (tok, logprob)
 
     return step

@@ -25,8 +25,11 @@ writes skip (``-1``) where the reference scatters them to the scratch rows;
 so the scratch rows stay zero here.
 
 One card only: the page table is not sharded, so the card owns every
-page and each page's tier-2 slot is its flat id; windowed reads
-(``read_pages`` > 0) and int8 pools are not ported (ROADMAP item 11.1).
+page and each page's tier-2 slot is its flat id; int8 pools are not
+ported (ROADMAP item 11.1). With a read window (``read_pages`` > 0, for
+sliding-window attention) only the pages ``[lo, lo + read_pages)`` of a
+sequence are read, touched, counted as misses and promoted, ``lo`` being
+:func:`read_window_start`.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ from repro_torch.storage.cache_state import CacheState, init_cache
 __all__ = ["KVSpec", "PagedKV", "AllocPlan", "init_paged_kv", "alloc_step",
            "write_back_evicted", "token_index", "write_token_kv", "read_pages",
            "prefill_residency", "prefill_write", "promote_pages",
-           "n_attn_layers"]
+           "read_window_start", "n_attn_layers"]
 
 _I32 = torch.int32
 
@@ -132,9 +135,22 @@ def init_paged_kv(spec: KVSpec, seed: int = 0, *, device=None) -> PagedKV:
     )
 
 
+def read_window_start(lengths: torch.Tensor, spec: KVSpec) -> torch.Tensor:
+    """The first page decode reads: ``read_pages - 1`` pages before the
+    current one (0 without a read window)."""
+    if spec.read_pages <= 0:
+        return torch.zeros_like(lengths)
+    first = lengths // spec.page_size - (spec.read_pages - 1)
+    return torch.clamp(first, min=0)
+
+
 def _readable(kv: PagedKV, spec: KVSpec) -> torch.Tensor:
+    """Pages holding tokens before the current one, inside the read
+    window."""
     p_range = torch.arange(spec.n_pages)[None, :]
-    return p_range * spec.page_size < kv.lengths[:, None]
+    lo = read_window_start(kv.lengths, spec)
+    return (p_range * spec.page_size < kv.lengths[:, None]) & (
+        p_range >= lo[:, None])
 
 
 # ---------------------------------------------------------------------------
@@ -268,23 +284,37 @@ def write_token_kv(pool1: torch.Tensor, kv_new, index: tuple,
 
 def read_pages(pools, kv: PagedKV, spec: KVSpec, li: int):
     """Gather the readable KV of layer ``li`` (the reference's single-pass
-    read): ``(k, v, valid)``, ``[B, n_pages * page, KV, hd]`` with the
-    mask of live tokens — resident pages from tier 1, the others from
-    their tier-2 home. The decode step reads the two tiers
-    with the paged-attention kernel instead; this is the plain read the
-    tests hold it against."""
+    read): ``(k, v, valid)``, ``[B, R * page, KV, hd]`` over the ``R``
+    pages from :func:`read_window_start` (``read_pages``, or every page
+    without a read window) with the mask of live tokens: at or before the
+    current one, and inside the sliding window where there is one —
+    resident pages from tier 1, the others from their tier-2 home. The
+    decode step reads the two tiers with the paged-attention kernel
+    instead; this is the plain read the tests hold it against.
+
+    A window that runs past the last page masks the pages past it; the
+    reference clips their indices to the last page instead, which reads
+    that page more than once (ROADMAP faults item (h))."""
     pool1, pool2 = pools
     B, NP, P = spec.b_local, spec.n_pages, spec.page_size
+    R = spec.read_pages if spec.read_pages > 0 else NP
     dev = pool1.device
-    slot = kv.page_slot.to(dev).long()
-    t2 = kv.t2_slot.to(dev).long()
+    lengths = kv.lengths.to(dev)
+    p_idx = read_window_start(lengths, spec)[:, None] + torch.arange(
+        R, device=dev)[None, :]                                # [B, R]
+    inside = p_idx < NP
+    p_idx = p_idx.clamp(max=NP - 1).long()
+    slot = torch.gather(kv.page_slot.to(dev), 1, p_idx).long()
+    t2 = torch.gather(kv.t2_slot.to(dev), 1, p_idx).long()
     data = torch.where((slot >= 0)[..., None, None, None, None],
                        pool1[slot.clamp(min=0), li], pool2[t2, li])
-    k = data[..., 0, :, :].reshape(B, NP * P, spec.n_kv, spec.head_dim)
-    v = data[..., 1, :, :].reshape(B, NP * P, spec.n_kv, spec.head_dim)
-    tok = torch.arange(NP * P, device=dev).reshape(NP, P)
-    valid = tok[None] <= kv.lengths.to(dev)[:, None, None]
-    return k, v, valid.reshape(B, NP * P)
+    k = data[..., 0, :, :].reshape(B, R * P, spec.n_kv, spec.head_dim)
+    v = data[..., 1, :, :].reshape(B, R * P, spec.n_kv, spec.head_dim)
+    tok = p_idx[..., None] * P + torch.arange(P, device=dev)  # [B, R, P]
+    valid = (tok <= lengths[:, None, None]) & inside[..., None]
+    if spec.window > 0:
+        valid &= tok > lengths[:, None, None] - spec.window
+    return k, v, valid.reshape(B, R * P)
 
 
 # ---------------------------------------------------------------------------

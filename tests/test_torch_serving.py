@@ -1,7 +1,9 @@
 """The port's paged two-tier serving on the CPU against ``repro.serving``.
 
-Reduced mistral-nemo-12b and stablelm-3b in f32, with the reference's
-parameters carried over by ``params_from_numpy``:
+Reduced mistral-nemo-12b, stablelm-3b, mamba2-370m (SSD blocks, no KV
+pools) and recurrentgemma-9b (RG-LRU blocks and sliding-window attention
+with windowed reads) in f32, with the reference's parameters carried over
+by ``params_from_numpy``:
 
 - prefill + teacher-forced decode against the reference engine: every
   integer of ``PagedKV`` equal after every step (the page table, the
@@ -9,7 +11,9 @@ parameters carried over by ``params_from_numpy``:
   OL weights bit for bit, the tokens equal, the logprobs within 1e-5, the
   pools within 1e-5 (f32 products summed in another order) with the
   scratch rows left out: the reference scatters masked prefill writes to
-  them, the port skips those writes;
+  them, the port skips those writes; the recurrent layers' decode states
+  within 1e-5 (f32, the scans summed in another order: the reference's
+  associative scans against the port's sequential and chunked ones);
 - a longer run with evictions, write-backs, tier-2 reads and epochs of the
   learner, from the default weights and from weights that pick the Random
   expert;
@@ -44,7 +48,10 @@ from repro_torch.models.transformer import fwd_hidden
 from repro_torch.serving import engine as teng
 from repro_torch.serving import kvpool as tkvp
 
-ARCHS = ["mistral-nemo-12b", "stablelm-3b"]
+ARCHS = ["mistral-nemo-12b", "stablelm-3b", "mamba2-370m",
+         "recurrentgemma-9b"]
+# The evicting runs need KV pools: mamba2 has none.
+KV_ARCHS = ["mistral-nemo-12b", "stablelm-3b", "recurrentgemma-9b"]
 
 
 def _cfgs(name):
@@ -94,6 +101,19 @@ def _assert_state(jkv, tkv, spec, ctx):
             err_msg=f"{ctx}: {name}")
 
 
+def _assert_rec(jstate, tstate, ctx):
+    """The recurrent layers' states, leaf by leaf, within 1e-5."""
+    for jr, tr in ((jstate.rec, tstate.rec), (jstate.rec_tail,
+                                              tstate.rec_tail)):
+        assert len(jr) == len(tr), ctx
+        for jd, td in zip(jr, tr):
+            assert sorted(jd) == sorted(td), ctx
+            for k in jd:
+                np.testing.assert_allclose(
+                    td[k].float().numpy(), np.asarray(jd[k], np.float32),
+                    atol=1e-5, rtol=1e-5, err_msg=f"{ctx}: rec {k}")
+
+
 def _run_both(name, rng, *, B, S0, n_dec, max_seq, hbm_fraction,
               weights=None, promote_every=0):
     """Prefill + ``n_dec`` teacher-forced decode steps in both engines,
@@ -118,11 +138,12 @@ def _run_both(name, rng, *, B, S0, n_dec, max_seq, hbm_fraction,
 
     jstate, (jt, jl) = jpre(jp, jnp.asarray(toks[:, :S0]))
     tstate, (tt, tl) = tpre(tp, torch.as_tensor(toks[:, :S0]))
+    assert (tstate.kv is None) == (jstate.kv is None)
     if weights is not None:
         w = np.asarray(weights, np.float32)
         jstate = jstate._replace(kv=jstate.kv._replace(
             ols=jstate.kv.ols._replace(weights=jnp.asarray(w))))
-        tstate = teng.DecodeState(kv=tstate.kv._replace(
+        tstate = tstate._replace(kv=tstate.kv._replace(
             ols=tstate.kv.ols._replace(weights=torch.as_tensor(w))))
     lps = []
     for step in range(n_dec + 1):
@@ -130,7 +151,9 @@ def _run_both(name, rng, *, B, S0, n_dec, max_seq, hbm_fraction,
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt), err_msg=ctx)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5,
                                    rtol=0, err_msg=ctx)
-        _assert_state(jstate.kv, tstate.kv, spec, ctx)
+        if tstate.kv is not None:
+            _assert_state(jstate.kv, tstate.kv, spec, ctx)
+        _assert_rec(jstate, tstate, ctx)
         lps.append(tl.numpy())
         if step == n_dec:
             break
@@ -139,7 +162,7 @@ def _run_both(name, rng, *, B, S0, n_dec, max_seq, hbm_fraction,
         tstate, (tt, tl) = tdec(tp, tstate, torch.as_tensor(x))
         if promote_every and step % promote_every == promote_every - 1:
             jstate = jstate._replace(kv=jprom(jstate.kv))
-            tstate = teng.DecodeState(kv=tkvp.promote_pages(
+            tstate = tstate._replace(kv=tkvp.promote_pages(
                 tstate.kv, spec, tsc.n_promote))
     return tcfg, tp, toks, np.stack(lps, 1), tstate.kv
 
@@ -160,11 +183,13 @@ def test_prefill_and_decode_match_reference(name, rng):
 
 @pytest.mark.parametrize("weights", [None, [0.2, 0.2, 0.6]],
                          ids=["default", "random-expert"])
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", KV_ARCHS)
 def test_evicting_run_matches_reference(name, weights, rng):
     """3 sequences, 2-page prompts, 56 decode steps over 6 pages each with 7
     tier-1 slots: evictions at four page boundaries, dirty write-backs,
-    tier-2 reads every step, 14 learner epochs, promotion every 4 steps."""
+    tier-2 reads every step, 14 learner epochs, promotion every 4 steps.
+    For recurrentgemma the 32-token window then leaves the oldest pages
+    outside the 3-page read window."""
     *_, kv = _run_both(name, rng, B=3, S0=32, n_dec=56, max_seq=96,
                        hbm_fraction=0.4, weights=weights, promote_every=4)
     assert int(kv.evictions[0]) > 0 and int(kv.writebacks[0]) > 0
@@ -199,6 +224,37 @@ def test_decode_from_empty_state_matches_reference(rng):
     kv = tstate.kv
     assert int(kv.t2_reads[0]) > 0 and int(kv.t1_reads[0]) > 0
     assert int(kv.evictions[0]) > 0
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_decode_from_empty_state_matches_reference(name, rng):
+    """Decode without a prefill, from ``init_decode_state``: the zero
+    recurrent states (and, for recurrentgemma, empty pools with windowed
+    reads) of the reference's layout, 40 steps, tokens, logprobs, states
+    and tier state held after every step."""
+    jcfg, tcfg = _cfgs(name)
+    jp, tp = _params(jcfg)
+    jsc = jeng.ServeConfig(max_seq=64, batch_local=2, page_axes=(),
+                           hbm_fraction=0.4)
+    tsc = teng.ServeConfig(max_seq=64, batch_local=2, hbm_fraction=0.4)
+    spec = teng.make_kv_spec(tcfg, tsc)
+    ms = jpm.MeshSizes()
+    jstate = jeng.init_decode_state(jcfg, jsc, SINGLE, ms)
+    tstate = teng.init_decode_state(tcfg, tsc, device="cpu")
+    _assert_rec(jstate, tstate, f"{name} empty state")
+    jdec = jax.jit(jeng.make_decode_step(jcfg, jsc, SINGLE, ms))
+    tdec = teng.make_decode_step(tcfg, tsc)
+    toks = rng.integers(0, jcfg.vocab, (2, 40)).astype(np.int32)
+    for t in range(40):
+        jstate, (jt, jl) = jdec(jp, jstate, jnp.asarray(toks[:, t]))
+        tstate, (tt, tl) = tdec(tp, tstate, torch.as_tensor(toks[:, t]))
+        ctx = f"{name} empty-state step {t}"
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt), err_msg=ctx)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5,
+                                   rtol=0, err_msg=ctx)
+        _assert_rec(jstate, tstate, ctx)
+        if tstate.kv is not None:
+            _assert_state(jstate.kv, tstate.kv, spec, ctx)
 
 
 def _spec_pair(hbm_fraction=0.4):
@@ -296,8 +352,8 @@ def test_one_launch_write_back_and_inclusion(hbm_fraction):
 
 @pytest.mark.parametrize("name,over,match", [
     ("mixtral-8x22b", {}, "MoE"),
-    ("recurrentgemma-9b", {}, "rglru"),
-    ("mamba2-370m", {}, "ssd"),
+    ("recurrentgemma-9b", {"kv_dtype": "int8"}, "int8"),
+    ("mamba2-370m", {"page_axes": ("model",)}, "several cards"),
     ("whisper-tiny", {}, "encoder-decoder"),
     ("paligemma-3b", {}, "VLM"),
     ("stablelm-3b", {"kv_dtype": "int8"}, "int8"),
@@ -317,6 +373,16 @@ def test_launcher_runs_on_cpu(capsys):
                  "2", "--prompt", "20", "--new", "6"])
     out = capsys.readouterr().out
     assert "kernel launches: {'flash_attention': 0, 'paged_attention': 0, " \
-           "'page_copy': 0}" in out
+           "'page_copy': 0, 'ssd_scan': 0, 'rglru_scan': 0}" in out
     with pytest.raises(NotImplementedError, match="int8"):
         tserve.main(["--int8-kv", "--device", "cpu"])
+
+
+def test_launcher_runs_attention_free_model_on_cpu(capsys):
+    """mamba2-370m (reduced) through the launcher: no KV pools, so no tier
+    traffic, and on the CPU no kernel launch."""
+    tserve.main(["--arch", "mamba2-370m", "--device", "cpu", "--requests",
+                 "2", "--prompt", "20", "--new", "6"])
+    out = capsys.readouterr().out
+    assert "no attention layers: no KV pools" in out
+    assert "'ssd_scan': 0, 'rglru_scan': 0}" in out
