@@ -8,7 +8,9 @@ on the card, and drives the port's paths through the entry points a user
 calls, each with the launch counts set to 0 just before it and read just
 after:
 
-1. build; 2. the bound's timing probes; 3. the cache-scan kernel against
+1. build (ptxas's registers and spills of the flash and paged kernels;
+   a spill in the tensor-core flash kernel at hd 128 or 256 fails);
+2. the bound's timing probes; 3. the cache-scan kernel against
    its plain version, every policy x prefetch;
 4. ``simulate`` on the §V worked example;
 5. ``simulate``'s stages on the full-size deployment (16 shards x 16,384
@@ -55,7 +57,9 @@ It prints:
 - one line per phase, with its times;
 - one JSON line ``{"kernels": [...]}`` with the seven kernels'
   launches on their paths, its agreement with the plain version, its time, the plain
-  version's time and its bound, term by term;
+  version's time and its bound, term by term (paged attention's time in
+  a loop of wrapper calls, and from a CUDA graph of the kernel's launches
+  alone as ``ms_graph``);
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits nonzero. Without CUDA, or without the
@@ -169,6 +173,31 @@ def cuda_ms(fn, reps: int = 1) -> tuple[float, object]:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, out
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Mean device time of ``fn()`` replayed from a CUDA graph ``reps``
+    times (CUDA events): the launches' own time, without the host's time
+    between them, which a loop of short kernels from Python may exceed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    ms, _ = cuda_ms(graph.replay, reps)
+    return ms
+
+
+def _paged_inputs(call) -> tuple:
+    """A captured paged launch with q in f32 and the tables in int32 on
+    the pool's card, as the wrapper converts them: timing it times the
+    kernel alone."""
+    q, pool, slot, live, window = call
+    dev = pool.device
+    return (q.to(dev, torch.float32).contiguous(), pool,
+            slot.to(dev, torch.int32).contiguous(),
+            live.to(dev, torch.int32).contiguous(), window)
 
 
 def filled_lines(row: np.ndarray, n_lines: int) -> int:
@@ -304,6 +333,7 @@ def phase_build():
     from repro_torch.kernels import reuse_distance as rd
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.build import build_library
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         libs = list(pool.map(lambda f: f(), (
@@ -316,6 +346,64 @@ def phase_build():
                   .splitlines() if "registers" in ln or "smem" in ln]
         log(f"[build] {lib.name}; ptxas: {' | '.join(report)}")
     log(f"[build] {len(libs)} libraries in {dt:.2f} s")
+    # The redesigned kernels' logs, found by source (the libraries exist
+    # now, so build_library only returns their paths).
+    logs = {src: ptxas_functions(build_library(src).with_suffix(".log")
+                                 .read_text())
+            for src in (fa.SOURCE, pa.SOURCE)}
+    for src, fns in logs.items():
+        log(f"[build] {src.name}, each kernel (registers, spill stores / "
+            f"loads in bytes): " + "; ".join(
+                f"{f['name']} {f['registers']}, {f['spill_stores']} / "
+                f"{f['spill_loads']}" for f in fns))
+    # The tensor-core flash kernel at mistral's and recurrentgemma's head
+    # dims: both must be in the log, and neither may spill.
+    tc = {f["name"]: f for f in logs[fa.SOURCE]
+          if f["name"] in ("tc<128>", "tc<256>")
+          and f["registers"] is not None}
+    if len(tc) != 2:
+        raise AssertionError(f"ptxas's log of {fa.SOURCE.name} does not "
+                             f"report both tc<128> and tc<256>: {sorted(tc)}")
+    spilled = [n for n, f in tc.items()
+               if f["spill_stores"] + f["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"the tensor-core flash kernel spills: "
+                             f"{spilled}")
+
+
+def ptxas_functions(text: str) -> list:
+    """Each kernel of a ``ptxas -v`` log: a short name (``tc<HD>`` and
+    ``f32<HD>`` for flash attention's two paths, ``paged<type, GT>``),
+    its registers and its spill stores and loads in bytes."""
+    import re
+    fns, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            for pat, fmt in ((r"2tc6kernelILi(\d+)E", "tc<{}>"),
+                             (r"3f326kernelILi(\d+)E", "f32<{}>"),
+                             (r"paged_attention_kernelI(\w+?)Li(\d+)E",
+                              "paged<{}, {}>")):
+                hit = re.search(pat, name)
+                if hit:
+                    name = fmt.format(*(("bf16" if "bfloat16" in g else
+                                         "f32" if g == "f" else g)
+                                        for g in hit.groups()))
+                    break
+            cur = dict(name=name, registers=None, spill_stores=0,
+                       spill_loads=0)
+            fns.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int,
+                                                              m.groups())
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return fns
 
 
 def phase_probes() -> float:
@@ -1183,8 +1271,8 @@ def phase_serve(dev=torch.device("cuda")) -> list:
     log(f"[serve, flash vs plain] layer 0's prefill, q {list(q.shape)} "
         f"(strided [B, S, H, hd] views), causal: max |diff| {f_err:.3e}, "
         f"element-wise {f_exc:.3f} of its bar; kernel "
-        f"{f_ms:.2f} ms, plain {fp_ms:.1f} ms, scaled_dot_product_attention "
-        f"{f_lib:.3f} ms, {fmt_bound(fb)}")
+        f"{f_ms:.3f} ms, plain {fp_ms:.1f} ms, scaled_dot_product_attention {f_lib:.3f} ms, "
+        f"{fmt_bound(fb)}")
     del got, want
 
     # Paged attention: the last decode step's tier-1 and tier-2 launches at
@@ -1204,13 +1292,20 @@ def phase_serve(dev=torch.device("cuda")) -> list:
     first = pcalls[:2]
     p_ms, _ = cuda_ms(lambda: [pa.paged_attention_cuda(*c) for c in first],
                       reps=10)
+    conv = [_paged_inputs(c) for c in first]
+    p_graph = graph_ms(lambda: [pa.paged_attention_cuda(*c) for c in conv])
     pp_ms, _ = cuda_ms(lambda: [paged_attention_ref(*c) for c in first],
                        reps=3)
     pb = _paged_bound(first, cfg.page_size)
+    n_split = pa.split_plan(B, cfg.n_kv_heads, kv.page_slot.shape[1],
+                            cfg.page_size)
     log(f"[serve, paged vs plain] last decode step, layers 0 and {L - 1}, "
         f"tier 1 and tier 2: largest |diff| / largest |plain| of acc, m, l "
-        f"{p_err:.3e} (tolerance {PAGED_REL_TOL}); layer 0, both tiers: "
-        f"kernel {p_ms:.4f} ms, plain {pp_ms:.3f} ms, {fmt_bound(pb)}")
+        f"{p_err:.3e} (tolerance {PAGED_REL_TOL}); layer 0, both tiers "
+        f"(n_split, span {n_split}): kernel {p_ms:.4f} ms in a loop of "
+        f"calls, {p_graph:.4f} ms from a CUDA graph of its launches alone, "
+        f"plain {pp_ms:.3f} ms, "
+        f"{fmt_bound(pb)}")
 
     # Page copy, byte for byte on the full-width pools: the first prefill
     # population (layer 0 into tier 2), a whole-slot write-back (tier-1
@@ -1285,7 +1380,10 @@ def phase_serve(dev=torch.device("cuda")) -> list:
               ms=p_ms, plain_ms=pp_ms, bound_ms=pb["bound_ms"],
               bound_by=pb["bound_by"], bound_terms=pb["bound_terms"],
               library_ms=None, max_abs_err_kind="relative to the largest "
-              "|plain| of each field",
+              "|plain| of each field", ms_graph=p_graph,
+              ms_kind="a loop of wrapper calls on the captured inputs; "
+              "ms_graph: a CUDA graph of the launches alone, on inputs "
+              "already in f32 / int32 on the card",
               shape=f"both tiers of layer 0 at the last decode step, "
                     f"q {list(first[0][0].shape)}, pools "
                     f"{list(pool1.shape)} / {list(pool2.shape)} bf16"),
@@ -1771,9 +1869,20 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
     if not f_exc <= 1:
         raise AssertionError(f"[{tag}] flash kernel != plain: {f_exc}")
     fb = _flash_bound(q, k, kw.get("window"))
+    # The yardstick: one PyTorch call for the same function, a boolean band
+    # mask (causal, the last `window` keys) with the kv head shared.
+    pos = torch.arange(q.shape[2], device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (
+        pos[None, :] > pos[:, None] - kw["window"])
+    sdpa = dict(attn_mask=band, enable_gqa=True)
+    torch.nn.functional.scaled_dot_product_attention(q, k, v, **sdpa)
+    f_lib, _ = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, **sdpa), reps=3)
+    del band
     log(f"[{tag}, flash vs plain] layer 2's prefill, q {list(q.shape)}, "
         f"window {kw.get('window')}: max |diff| {f_err:.3e}, element-wise "
-        f"{f_exc:.3f} of its bar; kernel {f_ms:.2f} ms, plain {fp_ms:.1f} "
+        f"{f_exc:.3f} of its bar; kernel {f_ms:.3f} ms, plain {fp_ms:.1f} ms, "
+        f"scaled_dot_product_attention (band mask, enable_gqa) {f_lib:.3f} "
         f"ms, {fmt_bound(fb)}")
 
     # Paged: both tiers of the first attention layer at the last step.
@@ -1788,13 +1897,19 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
         raise AssertionError(f"[{tag}] paged kernel != plain: {p_err}")
     p_ms, _ = cuda_ms(lambda: [pa.paged_attention_cuda(*c) for c in pcalls],
                       reps=10)
+    conv = [_paged_inputs(c) for c in pcalls]
+    p_graph = graph_ms(lambda: [pa.paged_attention_cuda(*c) for c in conv])
     pp_ms, _ = cuda_ms(lambda: [paged_attention_ref(*c) for c in pcalls],
                        reps=3)
     pb = _paged_bound(pcalls, cfg.page_size)
+    n_split = pa.split_plan(S["requests"], cfg.n_kv_heads,
+                            pcalls[0][2].shape[1], cfg.page_size)
     log(f"[{tag}, paged vs plain] last decode step, first attention layer, "
         f"both tiers, window {pcalls[0][4]}: largest |diff| / largest "
-        f"|plain| {p_err:.3e} (tolerance {PAGED_REL_TOL}); kernel "
-        f"{p_ms:.4f} ms, plain {pp_ms:.3f} ms, {fmt_bound(pb)}")
+        f"|plain| {p_err:.3e} (tolerance {PAGED_REL_TOL}); (n_split, span) "
+        f"{n_split}: kernel {p_ms:.4f} ms in a loop of calls, "
+        f"{p_graph:.4f} ms from a CUDA graph of its launches alone, plain "
+        f"{pp_ms:.3f} ms, {fmt_bound(pb)}")
 
     # Page copy: the first prefill population, byte for byte.
     dst, src, di, si = cap["copy"]
@@ -1830,11 +1945,13 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
     at_rg = dict(
         flash_attention=dict(recurrentgemma_ms=f_ms,
                              recurrentgemma_plain_ms=fp_ms,
+                             recurrentgemma_library_ms=f_lib,
                              recurrentgemma_bound_ms=fb["bound_ms"],
                              recurrentgemma_launches=launches[
                                  "flash_attention"],
                              recurrentgemma_max_abs_err=f_err),
         paged_attention=dict(recurrentgemma_ms=p_ms,
+                             recurrentgemma_ms_graph=p_graph,
                              recurrentgemma_plain_ms=pp_ms,
                              recurrentgemma_bound_ms=pb["bound_ms"],
                              recurrentgemma_launches=launches[

@@ -1,7 +1,8 @@
 """Flash attention forward as a hand-written CUDA kernel.
 
 Causal or sliding-window GQA attention with an online softmax
-(``csrc/flash_attention.cu``), the prefill attention of the serving path.
+(``csrc/flash_attention.cu``), the prefill attention of the serving path:
+bf16 on the tensor cores (``wgmma``), f32 on the CUDA cores.
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:
 flash_attention``; the plain version is
 :func:`repro_torch.kernels.ref.attention_ref`.
@@ -94,6 +95,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim must be contiguous")
     out = torch.empty_like(q)  # q's strides when q is dense
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
+            for t in (q, k, v, out)):
+        raise ValueError("the bf16 kernel copies 16-byte rows: q, k, v must "
+                         "be 16-byte aligned with strides of multiples of 8")
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
     lib = _library()

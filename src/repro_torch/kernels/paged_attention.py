@@ -17,6 +17,11 @@ engine's ``[slots, layers, page, 2, KV, hd]`` pools is passed as
 window``). Output f32 ``acc [B, H, hd]``, ``m [B, H]``, ``l [B,
 H]``.
 
+The kernel splits each (sequence, kv head)'s tokens across
+``n_split`` blocks (:func:`split_plan`, from the shapes alone) and merges
+their partials in the same launch, in split order: one launch a call, the
+same result bit for bit from run to run.
+
 Dispatch: :func:`paged_attention` runs the plain version for CPU pools
 (and on the card inside :func:`repro_torch.kernels.plain_versions`), the
 kernel for CUDA pools; there is no fallback between them.
@@ -32,15 +37,19 @@ from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 from repro_torch.kernels.ref import paged_attention_ref
 
-__all__ = ["paged_attention", "paged_attention_cuda",
+__all__ = ["paged_attention", "paged_attention_cuda", "split_plan",
            "build_paged_attention", "paged_attention_launch_count",
            "reset_paged_attention_launch_count"]
 
 SOURCE = CSRC / "paged_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The split aims at TARGET_BLOCKS blocks: 4 of the kernel's 256-thread
+# blocks on each of an H100 SXM's 132 SMs.
+TARGET_BLOCKS = 4 * 132
 
 _LAUNCHES = [0]
 _LIB = [None]
+_COUNTERS: dict = {}  # device -> int32 counters, zero between launches
 
 
 def paged_attention_launch_count() -> int:
@@ -59,9 +68,30 @@ def _library():
     if _LIB[0] is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         _LIB[0] = load_library(SOURCE, "paged_attention_launch",
-                               [p, p, i, ll, i, p, p, p, p, p] + [i] * 7
-                               + [p])
+                               [p, p, i, ll, i, p, p, p, p, p, p, p]
+                               + [i] * 9 + [p])
+        _LIB[0].paged_attention_max_items.restype = i
     return _LIB[0]
+
+
+def split_plan(B: int, KV: int, n_pages: int, page: int) -> tuple:
+    """``(n_split, span)``: the kernel's grid is ``B x KV x n_split`` and
+    block ``s`` of a (sequence, kv head) takes its tokens ``[s span, (s +
+    1) span)``, a run of ``span / page`` whole pages. From the shapes alone
+    (no read of the lengths, no sync with the card): enough splits for
+    :data:`TARGET_BLOCKS` blocks, or one page a split where the pages are
+    fewer. The splits cover the ``n_pages x page`` tokens exactly once."""
+    want = -(-TARGET_BLOCKS // max(B * KV, 1))
+    per = max(1, n_pages // max(want, 1))  # pages a split
+    return max(1, -(-n_pages // per)), per * page
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = buf
+    return buf
 
 
 def _check(q, pool, page_slot, lengths) -> None:
@@ -84,7 +114,12 @@ def paged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
     contiguous inside, 16-byte aligned, with a head dim of whole 16-byte
     vectors; q, page_slot and lengths are moved to the pool's device if
     they are not there. Slots at or past ``pool.shape[0]`` are skipped
-    like ``-1``."""
+    like ``-1``.
+
+    The blocks of a (sequence, kv head) count themselves on one int32
+    counter of a buffer kept per device (zeroed once; the last block
+    resets it), so calls on one device are ordered on its current
+    stream: two calls on two streams at once would share counters."""
     _check(q, pool, page_slot, lengths)
     dev = pool.device
     if dev.type != "cuda":
@@ -100,17 +135,28 @@ def paged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
                          f"the pool 16-byte aligned")
     B, H, hd = q.shape
     slots, page, _, KV, _ = pool.shape
+    G = H // KV
+    lib = _library()
+    group = 4 if G >= 8 and G % 4 == 0 else 1  # query heads a warp item
+    if G // group * hd // 4 > lib.paged_attention_max_items():
+        raise ValueError(f"{G} query heads a kv head at head dim {hd} are "
+                         f"more than the kernel's registers hold")
+    n_pages = page_slot.shape[1]
+    n_split, span = split_plan(B, KV, n_pages, page)
     qf = q.to(device=dev, dtype=torch.float32).contiguous()
     ps = page_slot.to(device=dev, dtype=torch.int32).contiguous()
     ln = lengths.to(device=dev, dtype=torch.int32).contiguous()
     acc = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
     m = torch.empty((B, H), dtype=torch.float32, device=dev)
     l = torch.empty((B, H), dtype=torch.float32, device=dev)
-    lib = _library()
+    part = torch.empty((B, KV, n_split, G, hd + 2) if n_split > 1 else (0,),
+                       dtype=torch.float32, device=dev)
+    counters = _counters(dev, B * KV)
     err = lib.paged_attention_launch(
         qf.data_ptr(), pool.data_ptr(), _DTYPES[pool.dtype], pool.stride(0),
-        slots, ps.data_ptr(), ln.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, H, KV, hd, page, ps.shape[1], int(window),
+        slots, ps.data_ptr(), ln.data_ptr(), part.data_ptr(),
+        counters.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B,
+        H, KV, hd, page, n_pages, n_split, span, int(window),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, SOURCE, err)
     _LAUNCHES[0] += 1

@@ -8,9 +8,12 @@ a machine with a card and without the reference package:
     PYTHONPATH=src python -m pytest tests/test_torch_serving_cuda.py
 
 Tolerances: flash attention 2e-5 (f32) and 2e-2 (bf16 output, the bar of
-``tests/test_kernels.py``); paged attention 3e-5 on f32 pools and 1e-4
-on bf16 pools (both sides compute in f32 from the same bf16 values, in
-another order); page copy byte for byte.
+``tests/test_kernels.py``), and in bf16 element by element within one
+bf16 step (``|diff| <= 2^-7 |plain| + 1e-5``, the bar of
+``chip_smoke.py``); paged attention 3e-5 on f32 pools and 1e-4 on bf16
+pools (both sides compute in f32 from the same bf16 values, in another
+order), and equal bit for bit from call to call; page copy byte for
+byte.
 """
 import dataclasses
 
@@ -74,6 +77,33 @@ def test_flash_kernel_matches_plain(cuda_device, B, H, KV, S, hd, causal,
     torch.testing.assert_close(om.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,hd,window", [
+    (1, 2, 1, 130, 16, None),     # ragged last tile
+    (2, 4, 2, 200, 32, 48),
+    (1, 8, 4, 256, 64, None),
+    (1, 6, 3, 333, 80, 100),      # ragged, window
+    (2, 8, 2, 384, 128, None),
+    (1, 4, 4, 65, 128, None),     # the second warpgroup's rows past S
+    (1, 16, 1, 320, 256, 200),    # recurrentgemma's G = 16, window
+])
+def test_flash_bf16_kernel_within_one_bf16_step(cuda_device, B, H, KV, S, hd,
+                                                window):
+    """The tensor-core path, element by element against the plain
+    version, at every compiled head dim."""
+    rng = np.random.default_rng(S * 7 + hd)
+    q = _randn(rng, (B, H, S, hd), torch.bfloat16, cuda_device)
+    k = _randn(rng, (B, KV, S, hd), torch.bfloat16, cuda_device)
+    v = _randn(rng, (B, KV, S, hd), torch.bfloat16, cuda_device)
+    before = fa.flash_attention_launch_count()
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_launch_count() == before + 1
+    want = attention_ref(q, k, v, causal=True, window=window).float()
+    excess = ((got.float() - want).abs() / (2.0 ** -7 * want.abs() + 1e-5))
+    assert float(excess.max()) <= 1
+
+
 def _paged_case(rng, dev, dtype, B, H, KV, hd, page, n_pages, slots, layers):
     pool6 = _randn(rng, (slots, layers, page, 2, KV, hd), dtype, dev)
     q = _randn(rng, (B, H, hd), dtype, dev)
@@ -110,8 +140,43 @@ def test_paged_kernel_matches_plain(cuda_device, B, H, KV, hd, page, n_pages,
         want = paged_attention_ref(q, view, ps, lengths)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+        assert float(got[0][0].abs().max()) == 0.0
         assert float(got[2][0].abs().max()) == 0.0
         assert bool((got[1][0] == np.float32(-1e30)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,hd,n_pages,window", [
+    (4, 32, 8, 128, 27, 0),       # mistral-nemo's heads
+    (3, 16, 1, 256, 27, 300),     # recurrentgemma's: windows across splits
+    (2, 16, 1, 256, 40, 2048),
+    (8, 32, 8, 128, 40, 0),
+])
+def test_paged_kernel_split_over_pages(cuda_device, B, H, KV, hd, n_pages,
+                                       window):
+    """Pages of 128 tokens split across blocks (several splits a
+    sequence): against the plain version, an empty sequence, one launch a
+    call, and two calls equal bit for bit."""
+    rng = np.random.default_rng(n_pages * 13 + hd + window)
+    page = 128
+    slots = B * n_pages // 2 + 3
+    q, pool6, ps, lengths = _paged_case(rng, cuda_device, torch.bfloat16, B,
+                                        H, KV, hd, page, n_pages, slots,
+                                        layers=2)
+    assert pa.split_plan(B, KV, n_pages, page)[0] > 1
+    view = pool6[:, 1]
+    before = pa.paged_attention_launch_count()
+    got = pa.paged_attention(q, view, ps, lengths, window)
+    again = pa.paged_attention(q, view, ps, lengths, window)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_launch_count() == before + 2
+    want = paged_attention_ref(q, view, ps, lengths, window)
+    for g, a, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+    assert float(got[0][0].abs().max()) == 0.0
+    assert float(got[2][0].abs().max()) == 0.0
+    assert bool((got[1][0] == np.float32(-1e30)).all())
 
 
 @pytest.mark.cuda
