@@ -93,6 +93,9 @@ INT32_OPS_PER_S = 67e12 / 4
 # Random expert's threefry draw and argmax step (eviction steps: 20 rounds
 # of add/rotate/xor, 6 key injections, the mantissa shift).
 OPS_LOOKUP, OPS_ARGMIN, OPS_DRAW = 1, 1, 83
+# Integer operations a filled line costs a look-ahead pass: its tag's hash
+# (a multiply and a shift), the probe's load and compare.
+OPS_PROBE = 4
 # Per eviction step and line: the int32 state arrays the victim experts
 # read (LRU: ts, LFU: freq) and whether the Random expert draws.
 VICTIM_ARRAYS = {"ws": 2, "lru": 1, "lfu": 1, "random": 0}
@@ -210,47 +213,94 @@ def filled_lines(row: np.ndarray, n_lines: int) -> int:
     return int(np.minimum(seen, n_lines).sum())
 
 
+def filled_at_passes(row: np.ndarray, n_lines: int, K: int) -> int:
+    """Lines the look-ahead passes of one row scan: the pass before step
+    ``t0`` (every ``K``-th step) scans the lines filled before it."""
+    new = np.zeros(len(row), np.int64)
+    new[np.unique(row, return_index=True)[1]] = 1
+    seen = np.cumsum(new) - new
+    return int(np.minimum(seen[::K], n_lines).sum())
+
+
 def bound(policies, out: dict, pages: np.ndarray, n_lines: int, W: int,
-          chain_ms: float, l2_rate: float) -> dict:
+          plan, chain_ms: float, walker_ms: float, rates: dict) -> dict:
     """Least time the card could take for this run's work, term by term
-    (``policies``: one policy for every row, or one a row):
+    (``policies``: one policy for every row, or one a row; ``plan``: the
+    launch's ``cache_scan.Plan``). The terms of the look-ahead design, of
+    which the bound is the largest:
 
     - ``io_bytes_ms``: inputs read once (page, write flag, window id; 12 B
       a request) and outputs written once, over the HBM rate;
-    - ``state_bytes_ms``: the per-line state the steps must read (4 B of
-      tags a filled line a lookup; on an eviction step 4 B a line of each
-      array a victim expert scans), over the L2 read rate measured here;
-    - ``ops_ms``: the integer operations on those lines, over the int32
-      rate;
-    - ``serial_chain_ms``: each row is a chain of dependent steps, and no
-      step can take less than the measured skeleton (two block barriers
-      around one dependent L2 load) on a block per row.
+    - ``state_bytes_pass_ms``: the per-line state the design must read (4 B
+      of tags a filled line a look-ahead pass of ``plan.K`` steps; on an
+      eviction step 4 B a line of each array a victim expert scans), over
+      the shared-memory read rate measured here where the state lives in
+      shared memory, else the L2 read rate;
+    - ``ops_pass_ms``: the integer operations on those lines (a pass's
+      probe, the argmins, the Random draws), over the int32 rate;
+    - ``walker_chain_ms``: each row is a chain of dependent walker
+      iterations, and none can take less than the measured skeleton of
+      one (``walker_ms`` is ``L`` of them: one warp's dependent
+      shared-memory step each, and a block pass every K steps). An
+      iteration takes one miss or a run of at most 32 hits, so a row
+      takes at least ``misses + ceil(hits / 32)`` of them; the term is
+      the most of any row, at ``walker_ms / L`` each.
 
-    The bound is the largest term; ``bytes`` names the first two,
-    ``operations`` the last two (the chain is a chain of dependent
+    Beside them, as before, the terms of the design with a block barrier a
+    step (``bound_terms_block_barrier``): ``state_bytes_ms`` (4 B of tags a
+    filled line a step, at the L2 rate), ``ops_ms`` (a compare a filled
+    line a step) and ``serial_chain_ms`` (two block barriers around one
+    dependent L2 load a step). ``bytes`` names the byte terms,
+    ``operations`` the others (the chain is a chain of dependent
     operations)."""
     B, L = pages.shape
     if isinstance(policies, str):
         policies = [policies] * B
     evictions = out["evictions"].tolist()
-    state = ops = 0
+    state = ops = state_pass = ops_pass = 0
     fills: dict = {}  # a sweep's points repeat the same shard rows
     for row, policy, ev in zip(pages, policies, evictions):
         key = row.tobytes()
         if key not in fills:
-            fills[key] = filled_lines(row, n_lines)
-        scanned = fills[key]
+            fills[key] = (filled_lines(row, n_lines),
+                          filled_at_passes(row, n_lines, plan.K))
+        scanned, passed = fills[key]
         ev_lines = ev * n_lines
-        state += 4 * scanned + 4 * VICTIM_ARRAYS[policy] * ev_lines
-        ops += (OPS_LOOKUP * scanned
-                + ev_lines * (OPS_ARGMIN * VICTIM_ARRAYS[policy]
-                              + OPS_DRAW * DRAWS[policy]))
+        victims = 4 * VICTIM_ARRAYS[policy] * ev_lines
+        evict_ops = ev_lines * (OPS_ARGMIN * VICTIM_ARRAYS[policy]
+                                + OPS_DRAW * DRAWS[policy])
+        state += 4 * scanned + victims
+        ops += OPS_LOOKUP * scanned + evict_ops
+        state_pass += 4 * passed + victims
+        ops_pass += OPS_PROBE * passed + evict_ops
     io = 12 * B * L + B * (4 * 8 + 4 * 3 + 4 * 3 + 4 * 13 * W)
+    rate = rates["smem"] if plan.smem_state else rates["l2"]
+    misses = np.asarray(out["misses"].tolist(), np.int64)
+    iters = int((misses + -(-(L - misses) // 32)).max())
     terms = dict(io_bytes_ms=1e3 * io / HBM_BYTES_PER_S,
-                 state_bytes_ms=1e3 * state / l2_rate,
-                 ops_ms=1e3 * ops / INT32_OPS_PER_S,
-                 serial_chain_ms=chain_ms)
-    return _largest(terms)
+                 state_bytes_pass_ms=1e3 * state_pass / rate,
+                 ops_pass_ms=1e3 * ops_pass / INT32_OPS_PER_S,
+                 walker_chain_ms=walker_ms * iters / L)
+    return dict(_largest(terms), bound_terms_block_barrier=dict(
+        state_bytes_ms=1e3 * state / rates["l2"],
+        ops_ms=1e3 * ops / INT32_OPS_PER_S, serial_chain_ms=chain_ms))
+
+
+def cache_scan_bound(policies, out: dict, pages: np.ndarray, cfg, W: int,
+                     rates: dict) -> dict:
+    """:func:`bound` of a cache-scan launch over ``pages``' rows, with its
+    plan and its two step probes timed here on the launch's shapes."""
+    from repro_torch.kernels import cache_scan as cs
+    from repro_torch.kernels import probe
+    B, L = pages.shape
+    plan = cs.cache_scan_plan(cfg, W, B)
+    dev = torch.device("cuda")
+    chain = probe.chain_step_ms(dev, n_rows=B, threads=plan.threads,
+                                steps=L)
+    walker = probe.walker_step_ms(dev, n_rows=B, threads=plan.threads,
+                                  steps=L, K=plan.K, n_lines=cfg.n_lines)
+    return dict(bound(policies, out, pages, cfg.n_lines, W, plan, chain,
+                      walker, rates), plan=plan._asdict())
 
 
 def _largest(terms: dict) -> dict:
@@ -317,8 +367,38 @@ def check_report(rep, ctr, ctx: str) -> None:
 
 
 def fmt_bound(b: dict) -> str:
-    terms = ", ".join(f"{k[:-3]} {v:.4f}" for k, v in b["bound_terms"].items())
-    return f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {terms})"
+    def terms(d):
+        return ", ".join(f"{k[:-3]} {v:.4f}" for k, v in d.items())
+    text = (f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+            f"{terms(b['bound_terms'])}")
+    for name in ("bound_terms_block_barrier", "bound_terms_per_head_cb"):
+        if name in b:
+            text += f"; not applied: {terms(b[name])}"
+    if "plan" in b:
+        p = b["plan"]
+        where = "shared memory" if p["smem_state"] else "device scratch"
+        text += (f"; plan: state in {where}, K {p['K']}, {p['threads']} "
+                 f"threads, cluster {p['cluster']}")
+    return text + ")"
+
+
+def check_over_bound(tag: str, ms: float, bound_ms: float) -> None:
+    """A kernel time under its own bound means the bound prices work the
+    kernel does not do: fail."""
+    if not ms >= bound_ms:
+        raise AssertionError(f"[{tag}] kernel {ms} ms under its bound "
+                             f"{bound_ms} ms")
+
+
+def check_kernels_over_bounds(kernels: list) -> None:
+    """Every ``<x>ms`` of the kernels line at or above its
+    ``<x>bound_ms``."""
+    for entry in kernels:
+        for key, b in entry.items():
+            if key.endswith("bound_ms") and b is not None:
+                ms = entry.get(key[:-len("bound_ms")] + "ms")
+                if ms is not None:
+                    check_over_bound(f"{entry['name']} {key}", ms, b)
 
 
 def phase_build():
@@ -406,13 +486,16 @@ def ptxas_functions(text: str) -> list:
     return fns
 
 
-def phase_probes() -> float:
-    """The card's L2 read rate, for the bound's state-bytes term."""
+def phase_probes() -> dict:
+    """The card's L2 and shared-memory read rates, for the bound's
+    state-bytes terms."""
     from repro_torch.kernels import probe
-    rate = probe.l2_read_rate("cuda")
-    log(f"[probes] L2 read rate {rate / 1e12:.3f} TB/s (l2_read_probe, "
-        f"CUDA events)")
-    return rate
+    rates = dict(l2=probe.l2_read_rate("cuda"),
+                 smem=probe.smem_read_rate("cuda"))
+    log(f"[probes] L2 read rate {rates['l2'] / 1e12:.3f} TB/s "
+        f"(l2_read_probe), shared-memory read rate "
+        f"{rates['smem'] / 1e12:.3f} TB/s (smem_read_probe); CUDA events")
+    return rates
 
 
 def _rows(L: int, n_windows: int):
@@ -434,18 +517,15 @@ def _rows(L: int, n_windows: int):
     return np.stack(pages), np.stack(writes), win
 
 
-def phase_kernel_vs_plain(l2_rate: float) -> None:
+def phase_kernel_vs_plain(rates: dict) -> None:
     """Kernel vs plain version on the card, every policy x prefetch."""
     from repro_torch.kernels import cache_scan as cs
-    from repro_torch.kernels import probe
     from repro_torch.storage.tiered_store import StoreConfig
     B, L, N, W = 4, 4096, 512, 8
     dev = torch.device("cuda")
     rows = _rows(L, W)
     pages, writes, win = (torch.as_tensor(x, device=dev) for x in rows)
     keys = cs.cold_keys(9, B, dev)
-    chain_ms = probe.chain_step_ms(dev, n_rows=B, steps=L,
-                                   threads=cs.cache_scan_threads(N))
     for policy in ("ws", "lru", "lfu", "random"):
         for prefetch in (False, True):
             cfg = StoreConfig(n_lines=N, policy=policy, prefetch=prefetch)
@@ -457,7 +537,9 @@ def phase_kernel_vs_plain(l2_rate: float) -> None:
             p_ms, want = cuda_ms(lambda: cs.cache_scan_plain(
                 *args, n_windows=W))
             compare(out, want, f"policy={policy} prefetch={prefetch}")
-            b = bound(policy, out, rows[0], N, W, chain_ms, l2_rate)
+            b = cache_scan_bound(policy, out, rows[0], cfg, W, rates)
+            check_over_bound(f"policy={policy} prefetch={prefetch}", k_ms,
+                             b["bound_ms"])
             log(f"[kernel vs plain] policy={policy} prefetch={prefetch}: "
                 f"equal (tolerance 0: integers exact, f32 bit for bit); "
                 f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, "
@@ -512,12 +594,11 @@ def full_size_spec():
         n_shards=16, mapping="random", n_windows=32, lam=200.0)
 
 
-def phase_full_size(l2_rate: float) -> dict:
+def phase_full_size(rates: dict) -> dict:
     """The paper's many-core deployment: 16 processes, one 16,384-line
     tier-1 cache each, 2^22 IRM requests, through the two entry points
     ``simulate`` composes."""
     from repro_torch.kernels import cache_scan as cs
-    from repro_torch.kernels import probe
     from repro_torch.sim import report_from_counters, tier1_counters
     from repro_torch.sim.engine import (
         _assemble_counters, fault_owner, stream_for_spec)
@@ -570,9 +651,7 @@ def phase_full_size(l2_rate: float) -> dict:
     for f in ctr._fields:
         if not np.array_equal(getattr(again, f), getattr(ctr, f)):
             raise AssertionError(f"timed re-run differs in {f}")
-    threads = cs.cache_scan_threads(cfg.n_lines)
-    main_b = bound("ws", out, sh_pages, cfg.n_lines, W, probe.chain_step_ms(
-        dev, n_rows=B, threads=threads, steps=L), l2_rate)
+    main_b = cache_scan_bound("ws", out, sh_pages, cfg, W, rates)
     log(f"[full size] {spec.n_shards} shards x {L} padded requests "
         f"(loads {int(counts.min())}..{int(counts.max())}), "
         f"n_lines={cfg.n_lines}: stream generation {gen_s:.2f} s, "
@@ -599,9 +678,7 @@ def phase_full_size(l2_rate: float) -> dict:
     err = compare(pout, want, f"full-size rows, first {P} requests")
     if not (pout["evictions"] > 0).all():
         raise AssertionError("a row never evicted in the compared prefix")
-    pre_b = bound("ws", pout, sh_pages[:, :P], cfg.n_lines, W,
-                  probe.chain_step_ms(dev, n_rows=B, threads=threads,
-                                      steps=P), l2_rate)
+    pre_b = cache_scan_bound("ws", pout, sh_pages[:, :P], cfg, W, rates)
     log(f"[full size, kernel vs plain] {B} rows x first {P} requests, "
         f"n_lines={cfg.n_lines}, {W} windows, ws: equal (tolerance 0: "
         f"integers exact, f32 bit for bit); kernel {pk_ms:.1f} ms, plain "
@@ -614,6 +691,9 @@ def phase_full_size(l2_rate: float) -> dict:
                 main_ms=k_ms, main_bound_ms=main_b["bound_ms"],
                 main_bound_by=main_b["bound_by"],
                 main_bound_terms=main_b["bound_terms"],
+                main_bound_terms_block_barrier=main_b[
+                    "bound_terms_block_barrier"],
+                main_plan=main_b["plan"],
                 main_shape=f"{B}x{L} rows, n_lines={cfg.n_lines}, "
                            f"n_windows={W}, ws")
 
@@ -663,12 +743,11 @@ def phase_reuse_vs_plain() -> None:
             f"{int((~valid).sum())}")
 
 
-def phase_mixed_knobs(l2_rate: float) -> None:
+def phase_mixed_knobs(rates: dict) -> None:
     """Kernel 1 with its own policy and beta on each of 8 rows in one
     launch, against the plain version on the same rows."""
     from repro_torch.core.traffic import TrafficSpec, make_stream
     from repro_torch.kernels import cache_scan as cs
-    from repro_torch.kernels import probe
     from repro_torch.storage.tiered_store import (
         POLICY_TO_IDX, StoreConfig, StoreHyper, stream_window_ids)
     B, L, N, W = 8, 4096, 512, 8
@@ -699,9 +778,8 @@ def phase_mixed_knobs(l2_rate: float) -> None:
     compare(out, want, "8 rows, mixed policy and beta")
     if not (out["evictions"] > 0).all():
         raise AssertionError("a mixed-knob row never evicted")
-    chain_ms = probe.chain_step_ms(dev, n_rows=B, steps=L,
-                                   threads=cs.cache_scan_threads(N))
-    b = bound(policies, out, pages, N, W, chain_ms, l2_rate)
+    b = cache_scan_bound(policies, out, pages, cfg, W, rates)
+    check_over_bound("mixed knobs", k_ms, b["bound_ms"])
     log(f"[mixed knobs] {B} rows x {L} requests, n_lines={N}, {W} windows, "
         f"policies {policies}, betas {betas}, one launch: equal (tolerance "
         f"0: integers exact, f32 bit for bit); kernel {k_ms:.3f} ms, plain "
@@ -800,13 +878,12 @@ def phase_mrc(spec) -> dict:
                 shape=f"{S}x{L} (the MRC route's rows, full size, lru)")
 
 
-def phase_megabatch(full_ctr, l2_rate: float) -> dict:
+def phase_megabatch(full_ctr, rates: dict) -> dict:
     """The sweep's megabatch at full width: 4 policies x 2 betas (8 cache
     signatures) x 2 rates, one 2^19 bucket, one launch of 128 rows; then
     that launch's rows against the plain version on their first
     MEGA_PREFIX steps."""
     from repro_torch.kernels import cache_scan as cs
-    from repro_torch.kernels import probe
     from repro_torch.sim import sweep
     from repro_torch.storage.tiered_store import POLICY_TO_IDX
     spec = full_size_spec()
@@ -855,12 +932,9 @@ def phase_megabatch(full_ctr, l2_rate: float) -> dict:
     if len(knobs) != 8:
         raise AssertionError(f"the launch's rows carry {len(knobs)} "
                              "(policy, beta) pairs, want 8")
-    dev = pages.device
-    threads = cs.cache_scan_threads(cfg.n_lines)
     W = kw["n_windows"]
-    mega_b = bound(policies, out, pages.cpu().numpy(), cfg.n_lines, W,
-                   probe.chain_step_ms(dev, n_rows=B, threads=threads,
-                                       steps=L), l2_rate)
+    mega_b = cache_scan_bound(policies, out, pages.cpu().numpy(), cfg, W,
+                              rates)
 
     # The launch's rows against the plain version on their first
     # MEGA_PREFIX steps, with their own knobs, keys and window ids.
@@ -870,9 +944,8 @@ def phase_megabatch(full_ctr, l2_rate: float) -> dict:
     pk_ms, pout = cuda_ms(lambda: cs.cache_scan_cuda(*pre, **kw))
     pp_ms, want = cuda_ms(lambda: cs.cache_scan_plain(*pre, **kw))
     err = compare(pout, want, f"megabatch rows, first {P} steps")
-    pre_b = bound(policies, pout, pages[:, :P].cpu().numpy(), cfg.n_lines,
-                  W, probe.chain_step_ms(dev, n_rows=B, threads=threads,
-                                         steps=P), l2_rate)
+    pre_b = cache_scan_bound(policies, pout, pages[:, :P].cpu().numpy(),
+                             cfg, W, rates)
     stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.profile.items()
                        if isinstance(v, float))
     log(f"[megabatch] {len(res.points)} points, 8 cache signatures, one "
@@ -893,6 +966,9 @@ def phase_megabatch(full_ctr, l2_rate: float) -> dict:
                 sweep_bound_ms=mega_b["bound_ms"],
                 sweep_bound_by=mega_b["bound_by"],
                 sweep_bound_terms=mega_b["bound_terms"],
+                sweep_bound_terms_block_barrier=mega_b[
+                    "bound_terms_block_barrier"],
+                sweep_plan=mega_b["plan"],
                 sweep_shape=f"{B}x{L} rows (16 points, 8 signatures, mixed "
                             f"policy and beta), n_lines={cfg.n_lines}, "
                             f"n_windows={W}",
@@ -1528,23 +1604,31 @@ def _check_bars(tag: str, h_err: float, lp_err: float, control: dict,
 
 
 def _ssd_bound(x, Bm, chunk: int) -> dict:
-    """The SSD scan's products, per (sequence, head, chunk of q steps):
-    C B^T and (CB * decay)(dt x) over the q (q + 1) / 2 causal pairs
-    t >= s (2 N and 2 P flops a pair; y sums over s <= t only), C h and
-    B^T x (2 q N P each), at the bf16 tensor-core rate; x, dt, B, C read
-    once and y and the final state written once at HBM's rate."""
+    """The SSD scan's least time: x, dt, B, C read once and y and the final
+    state written once at HBM's rate (``bytes_ms``); the products at the
+    bf16 tensor-core rate with C B^T counted once per (sequence, chunk),
+    as B and C are shared by the heads (``ops_shared_cb_ms``): C B^T and
+    (CB * decay)(dt x) over the q (q + 1) / 2 causal pairs t >= s of a
+    chunk of q steps (2 N and 2 P flops a pair; y sums over s <= t only),
+    C h and B^T x (2 q N P each). Beside them, not applied, the operations
+    with C B^T counted once per head (``ops_ms``, the count before the
+    kernel shared it)."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
     lens = [Q] * (S // Q) + ([S % Q] if S % Q else [])
-    flops = Bsz * H * sum(q * (q + 1) // 2 * (2 * N + 2 * P)
-                          + 4 * q * N * P for q in lens)
+    cb = Bsz * sum(q * (q + 1) // 2 * 2 * N for q in lens)
+    rest = Bsz * H * sum(q * (q + 1) // 2 * 2 * P + 4 * q * N * P
+                         for q in lens)
     nbytes = (2 * x.numel() * x.element_size() + 4 * Bsz * S * H
               + 2 * Bm.numel() * Bm.element_size() + 4 * H
               + 4 * Bsz * H * N * P)
     return dict(_largest(dict(bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
-                              ops_ms=1e3 * flops / BF16_FLOPS_PER_S)),
-                flops=flops, bytes=nbytes)
+                              ops_shared_cb_ms=1e3 * (cb + rest)
+                              / BF16_FLOPS_PER_S)),
+                bound_terms_per_head_cb=dict(
+                    ops_ms=1e3 * (H * cb + rest) / BF16_FLOPS_PER_S),
+                flops=cb + rest, bytes=nbytes)
 
 
 # f32 operations an RG-LRU element takes: two gates (a multiply-add, an
@@ -1677,8 +1761,9 @@ def phase_ssd_serve(dev=torch.device("cuda")) -> dict:
         replaces="src/repro/kernels/ssd_scan.py:68",
         launches=launches["ssd_scan"], max_abs_err=y_err, ms=k_ms,
         plain_ms=p_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-        bound_terms=b["bound_terms"], library_ms=None,
-        state_rel_err=h_rel,
+        bound_terms=b["bound_terms"],
+        bound_terms_per_head_cb=b["bound_terms_per_head_cb"],
+        library_ms=None, state_rel_err=h_rel,
         shape=f"x {list(x.shape)} bf16, B/C {list(Bm.shape)}, chunk {chunk} "
               f"(layer 0 of the prefill)")
 
@@ -1970,16 +2055,16 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails at once without the repo)
     log(card_line())  # name, power limit: as nvidia-smi prints them
     phase_build()
-    l2_rate = phase_probes()
-    phase_kernel_vs_plain(l2_rate)
+    rates = phase_probes()
+    phase_kernel_vs_plain(rates)
     phase_worked_example()
-    full = phase_full_size(l2_rate)
+    full = phase_full_size(rates)
     full_ctr = full.pop("counters")
     phase_reuse_vs_plain()
-    phase_mixed_knobs(l2_rate)
+    phase_mixed_knobs(rates)
     mrc = phase_mrc(full_size_spec().replace(
         **{"store.policy": "lru", "n_windows": 1}))
-    mega = phase_megabatch(full_ctr, l2_rate)
+    mega = phase_megabatch(full_ctr, rates)
     serving = phase_serve()
     ssd = phase_ssd_serve()
     rglru, at_rg = phase_rglru_serve()
@@ -1995,8 +2080,9 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/reuse_distance.cu",
         replaces="src/repro/kernels/reuse_distance.py:142", library_ms=None,
         **mrc)
-    print(json.dumps({"kernels": [cache_scan, reuse, *serving, ssd, rglru]}),
-          flush=True)
+    kernels = [cache_scan, reuse, *serving, ssd, rglru]
+    check_kernels_over_bounds(kernels)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,18 +6,19 @@ row's cache state in VMEM and loops over the requests with one-hot
 elementwise updates.
 
 On Hopper the kernel (``csrc/cache_scan.cu``) runs one thread block per
-shard row. What bounds it is the serial request loop: every step reads the
-state the previous step wrote, so a row's steps cannot overlap, and only
-the ``n_lines`` of one step (lookup, LRU/LFU argmin, the Random expert's
-per-line threefry draw) spread over the block's threads; the scalar learner
-and prefetcher run on thread 0 between block barriers. The design keeps
-the per-line state (16 B a line) in device scratch small enough to stay in
-the 50 MB L2, the learner, rings, prefetch buffer and window counters in
-shared memory, draws the Random expert's uniforms inside the kernel only on
-eviction steps (no ``[L, n_lines]`` noise table is ever built) and runs the
-PRNG key chain on a second warp. See ``PERF.md`` for its time and bound,
-and ``probe.py`` for the probes that price the bound's serial-step and L2
-terms.
+shard row, or a thread-block cluster per row where rows are fewer than
+SMs. What bounds it is the serial request loop: every step reads the
+state the previous step wrote, so a row's steps cannot overlap. The design
+keeps the per-line state in shared memory where it fits (else in device
+scratch that stays in L2), looks up the next ``K`` requests' pages in one
+block-wide pass, and lets one warp walk the ``K`` steps with no block
+barrier, correcting each looked-up line with the walk's own fills; the
+block joins in only for an eviction's victim proposals and an active
+prefetch probe. The PRNG key chain runs on its own warp, and the other
+blocks of a row's cluster draw the Random expert's uniforms for their
+share of the lines (no ``[L, n_lines]`` noise table is ever built). See
+``PERF.md`` for its time and bound, and ``probe.py`` for the probes that
+price the bound's step and shared-memory terms.
 
 Dispatch: :func:`fused_cache_scan` takes the plain PyTorch version
 (:func:`repro_torch.kernels.ref.cache_scan_ref`) for tensors on the CPU and
@@ -30,6 +31,7 @@ compile count, as a launch count).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +46,8 @@ __all__ = [
     "cache_scan_cuda",
     "cold_keys",
     "cache_scan_threads",
+    "cache_scan_plan",
+    "Plan",
     "per_row",
     "build_cache_scan",
     "cache_scan_launch_count",
@@ -52,6 +56,7 @@ __all__ = [
 
 SOURCE = CSRC / "cache_scan.cu"
 _SMEM_MAX = 232448  # dynamic shared memory a block may use on Hopper
+_LOOKAHEAD = 256  # requests a look-ahead pass covers
 
 _LAUNCHES = [0]
 _LIB = [None]
@@ -76,10 +81,12 @@ def _library():
     if _LIB[0] is None:
         lib = ctypes.CDLL(str(build_cache_scan()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cache_scan_launch.argtypes = [p] * 15 + [i] * 10 + [p]
+        lib.cache_scan_launch.argtypes = [p] * 15 + [i] * 13 + [p]
         lib.cache_scan_launch.restype = i
-        lib.cache_scan_smem_bytes.argtypes = [i] * 5
+        lib.cache_scan_smem_bytes.argtypes = [i] * 8
         lib.cache_scan_smem_bytes.restype = ctypes.c_size_t
+        lib.cache_scan_pick_cluster.argtypes = [i] * 10
+        lib.cache_scan_pick_cluster.restype = i
         lib.cache_scan_error_string.argtypes = [i]
         lib.cache_scan_error_string.restype = ctypes.c_char_p
         _LIB[0] = lib
@@ -87,9 +94,52 @@ def _library():
 
 
 def cache_scan_threads(n_lines: int) -> int:
-    """Threads of one block: a warp per 32 lines, at most 1,024 (each
-    thread then loops over ``ceil(n_lines / 1024)`` lines)."""
-    return min(1024, max(32, -(-n_lines // 32) * 32))
+    """Threads of one block: the walker's warp, the key-chain warp, and a
+    worker warp per 32 lines (at least one) up to 512 threads in all, so
+    that a thread may hold 128 registers; each worker thread then loops
+    over ``ceil(n_lines / 448)`` lines."""
+    return 64 + min(448, max(32, -(-n_lines // 32) * 32))
+
+
+class Plan(NamedTuple):
+    """How a launch runs: the per-line state in shared memory or in device
+    scratch, the look-ahead ``K``, the block's shared memory and threads,
+    and the blocks a row's cluster takes."""
+
+    smem_state: bool
+    K: int
+    smem_bytes: int
+    threads: int
+    cluster: int
+
+
+def cache_scan_plan(cfg, n_windows: int, n_rows: int, *,
+                    cluster=None) -> Plan:
+    """The plan of a launch of ``n_rows`` rows, chosen from the sizes alone:
+    the state in shared memory where it fits beside a look-ahead of
+    ``_LOOKAHEAD`` requests, else in device scratch; 8, 4 or 2 blocks a row
+    where the rows' clusters fit the card at once and the cache is large
+    (the library decides), else 1. ``cluster`` forces the cluster size.
+    Raises if the card's occupancy query fails."""
+    lib = _library()
+    N, K = cfg.n_lines, _LOOKAHEAD
+    dims = (min(cfg.pred_cap, cfg.epoch_width), cfg.prefetch_width,
+            cfg.prefetch_buf, n_windows, cfg.epoch_width)
+    for in_smem in (True, False):
+        smem = lib.cache_scan_smem_bytes(N, K, *dims, int(in_smem))
+        if smem <= _SMEM_MAX:
+            threads = cache_scan_threads(N)
+            if cluster is None:
+                cluster = lib.cache_scan_pick_cluster(
+                    n_rows, N, K, *dims, int(in_smem), threads)
+                if cluster < 0:
+                    raise RuntimeError(
+                        "cache_scan cluster query failed: "
+                        + lib.cache_scan_error_string(-cluster).decode())
+            return Plan(in_smem, K, smem, threads, cluster)
+    raise ValueError(
+        f"n_lines={N}, n_windows={n_windows} need {smem} B of shared "
+        f"memory per block; the card offers {_SMEM_MAX}")
 
 
 def per_row(hyper, n_rows: int, device):
@@ -148,6 +198,14 @@ def cache_scan_cuda(cfg, hyper, keys, pages, writes, win, *,
     ``init_store`` state with PRNG key ``keys[b]`` (two uint32 words).
     Returns the accumulator dict (``StreamStats`` field names, a leading
     row axis, plus ``final_weights``)."""
+    return _launch(cfg, hyper, keys, pages, writes, win, n_windows=n_windows)
+
+
+def _launch(cfg, hyper, keys, pages, writes, win, *, n_windows: int,
+            cluster=None) -> dict:
+    """:func:`cache_scan_cuda` with the cluster size a row takes forced
+    where given (the tests hold cluster sizes 1 and 8 against each other);
+    by default it follows the sizes."""
     _check_rows(pages, writes, win)
     dev = pages.device
     if dev.type != "cuda":
@@ -160,13 +218,7 @@ def cache_scan_cuda(cfg, hyper, keys, pages, writes, win, *,
         raise ValueError("n_lines, epoch_width, pred_cap and the row count "
                          "must be positive")
     lib = _library()
-    smem = lib.cache_scan_smem_bytes(ring, cfg.prefetch_width,
-                                     cfg.prefetch_buf, W, ew)
-    if smem > _SMEM_MAX:
-        raise ValueError(
-            f"n_windows={W} needs {smem} B of shared memory per block; "
-            f"the card offers {_SMEM_MAX}")
-    threads = cache_scan_threads(N)
+    plan = cache_scan_plan(cfg, W, B, cluster=cluster)
     i32, f32 = torch.int32, torch.float32
     pages = pages.to(i32).contiguous()
     writes = writes.to(i32).contiguous()
@@ -175,8 +227,9 @@ def cache_scan_cuda(cfg, hyper, keys, pages, writes, win, *,
     pw = _ol.pow_table(beta, ew).to(dev).contiguous()
     k = torch.as_tensor(keys, dtype=torch.int64).reshape(B, 2)
     k = torch.where(k >= 2**31, k - 2**32, k).to(i32).to(dev).contiguous()
-    scratch = torch.empty(4, B, N, dtype=i32, device=dev)
-    scal = torch.empty(B, 8, dtype=i32, device=dev)
+    scratch = torch.empty(0 if plan.smem_state else B * (3 * N + -(-N // 32)),
+                          dtype=i32, device=dev)
+    scal = torch.empty(B, 6, dtype=i32, device=dev)
     eu = torch.empty(B, E, dtype=i32, device=dev)
     winc = torch.empty(B, 7, W, dtype=i32, device=dev)
     weu = torch.empty(B, W, E, dtype=i32, device=dev)
@@ -187,7 +240,8 @@ def cache_scan_cuda(cfg, hyper, keys, pages, writes, win, *,
                                    k, scratch, scal, eu, winc, weu, ww, fw)]
     err = lib.cache_scan_launch(
         *ptrs, B, L, N, ew, ring, int(cfg.prefetch), cfg.prefetch_width,
-        cfg.prefetch_buf, W, threads, stream)
+        cfg.prefetch_buf, W, plan.K, int(plan.smem_state), plan.cluster,
+        plan.threads, stream)
     if err != 0:
         raise RuntimeError("cache_scan kernel launch failed: "
                            + lib.cache_scan_error_string(err).decode())

@@ -1,11 +1,14 @@
 """Timed probes that price the cache-scan kernel's bound on the card.
 
-``csrc/probe.cu`` holds two small kernels with no TPU counterpart; nothing
-on the main path launches them. :func:`l2_read_rate` measures the rate at
-which the whole card reads an L2-resident buffer, and
-:func:`chain_step_ms` the least time of one request step of the cache-scan
-kernel's design (two block barriers around one dependent L2 load), each
-with CUDA events on the given CUDA device.
+``csrc/probe.cu`` holds small kernels with no TPU counterpart; nothing on
+the main path launches them. :func:`l2_read_rate` and
+:func:`smem_read_rate` measure the rates at which the whole card reads an
+L2-resident buffer and its shared memory; :func:`chain_step_ms` the least
+time of the request steps of the cache-scan design that takes a block
+barrier a step (two block barriers around one dependent L2 load) and
+:func:`walker_step_ms` that of the look-ahead design (a block pass every
+``K`` steps, then one warp's dependent shared-memory steps), each with
+CUDA events on the given CUDA device.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ import torch
 
 from repro_torch.kernels.build import CSRC, build_library
 
-__all__ = ["build_probe", "l2_read_rate", "chain_step_ms"]
+__all__ = ["build_probe", "l2_read_rate", "smem_read_rate", "chain_step_ms",
+           "walker_step_ms"]
 
 SOURCE = CSRC / "probe.cu"
 _LIB = [None]
@@ -35,6 +39,10 @@ def _library():
         lib.l2_read_probe_launch.restype = i
         lib.chain_probe_launch.argtypes = [p, i, p, i, i, p]
         lib.chain_probe_launch.restype = i
+        lib.walker_probe_launch.argtypes = [i, i, i, p, i, i, p]
+        lib.walker_probe_launch.restype = i
+        lib.smem_read_probe_launch.argtypes = [i, i, p, i, i, p]
+        lib.smem_read_probe_launch.restype = i
         lib.probe_error_string.argtypes = [i]
         lib.probe_error_string.restype = ctypes.c_char_p
         _LIB[0] = lib
@@ -91,4 +99,32 @@ def chain_step_ms(device, *, n_rows: int, threads: int, steps: int) -> float:
     out = torch.empty(n_rows, dtype=torch.int32, device=device)
     return _timed(lambda lib, s: lib.chain_probe_launch(
         nxt.data_ptr(), steps, out.data_ptr(), n_rows, threads, s),
+        device, reps=1)
+
+
+def smem_read_rate(device, *, threads: int = 1024, reps: int = 4096) -> float:
+    """Bytes per second at which every SM together reads its shared memory:
+    two blocks of ``threads`` an SM, each thread loading 16 bytes of its
+    block's 64 KiB ``reps`` times, each address depending on the last
+    load's data."""
+    device = torch.device(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks, n_vec = 2 * sms, 4096
+    out = torch.empty(blocks * threads, dtype=torch.int32, device=device)
+    ms = _timed(lambda lib, s: lib.smem_read_probe_launch(
+        reps, n_vec, out.data_ptr(), blocks, threads, s), device, reps=3)
+    return blocks * threads * 16 * reps / (ms * 1e-3)
+
+
+def walker_step_ms(device, *, n_rows: int, threads: int, steps: int,
+                   K: int, n_lines: int) -> float:
+    """Milliseconds for ``steps`` hit steps of the look-ahead design in a
+    row (a block pass over ``n_lines`` lines every ``K`` steps, one warp's
+    walk between), one block of ``threads`` threads per row, ``n_rows`` rows
+    at once; ``n_lines`` is capped at 16,384 (the per-line state must fit
+    the block's shared memory)."""
+    device = torch.device(device)
+    out = torch.empty(n_rows, dtype=torch.int32, device=device)
+    return _timed(lambda lib, s: lib.walker_probe_launch(
+        steps, K, min(n_lines, 16384), out.data_ptr(), n_rows, threads, s),
         device, reps=1)

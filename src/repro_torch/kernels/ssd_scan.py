@@ -1,18 +1,25 @@
 """The Mamba-2 chunked SSD scan as a hand-written CUDA kernel.
 
-``csrc/ssd_scan.cu`` walks one (sequence, head) through its chunks of
-``Q`` steps, keeping the state ``h [N, P]`` in shared memory; per chunk
+Per chunk of ``Q`` steps, with ``cum`` the within-chunk cumulative sum of
+``dt A``:
 
     CB = C . B^T                                   [Q, Q]
     y  = (CB * causal decay) . (dt x) + exp(cum) * (C . h)
     h' = exp(cum_end) h + B^T . (exp(cum_end - cum) dt x)
 
-with ``cum`` the within-chunk cumulative sum of ``dt A``. It replaces the
-Pallas TPU kernel ``repro/kernels/ssd_scan.py:ssd_scan_kernel`` and also
-returns the final state, which the prefill hands to decode (the
-reference takes it from ``ssd_chunked(..., return_state=True)``).
+``csrc/ssd_scan.cu`` runs it chunk-parallel on the tensor cores, as
+Mamba-2's SSD does: each chunk's state increment (one block per sequence,
+chunk and group of 4 heads), a short sequential pass over the chunk states
+of each (sequence, head), then each chunk's output with ``C . B^T``
+computed once for a group of 8 heads (B and C are shared by the heads).
+An operand computed in f32 enters the bf16 products as three bf16 parts
+(as do x, B and C when they are f32), so y keeps f32 accuracy. It
+replaces the Pallas TPU
+kernel ``repro/kernels/ssd_scan.py:ssd_scan_kernel`` and also returns the
+final state, which the prefill hands to decode (the reference takes it
+from ``ssd_chunked(..., return_state=True)``).
 
-:func:`ssd_scan_plain` mirrors the kernel chunk by chunk in PyTorch;
+:func:`ssd_scan_plain` computes the same chunk by chunk in PyTorch;
 :func:`repro_torch.kernels.ref.ssd_ref` is the step-by-step recurrence.
 
 Layouts: x ``[B, S, H, P]``, dt ``[B, S, H]`` f32 (softplus'ed), A
@@ -23,7 +30,8 @@ unchanged) and cuts y back.
 
 Dispatch: :func:`ssd_scan` runs the plain version for CPU tensors (and on
 the card inside :func:`repro_torch.kernels.plain_versions`), the kernel
-for CUDA tensors; there is no fallback between them.
+for CUDA tensors; there is no fallback between them. One wrapper call
+counts one launch, whatever launches the kernel makes inside it.
 """
 from __future__ import annotations
 
@@ -37,14 +45,11 @@ from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_cuda", "build_ssd_scan",
-           "ssd_scan_launch_count", "reset_ssd_scan_launch_count",
-           "MAX_STATE"]
+           "ssd_scan_launch_count", "reset_ssd_scan_launch_count"]
 
 SOURCE = CSRC / "ssd_scan.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_STATE = 8192  # N * P: the state elements a block keeps in registers
-_THREADS = 256    # a block's threads; P must divide them
-_MAX_P = 64       # head dims a block's 16 column threads cover (4 each)
+_MAX_Q, _MAX_N, _MAX_P = 256, 128, 64  # chunk, state and head dims
 
 _LAUNCHES = [0]
 _LIB = [None]
@@ -66,7 +71,7 @@ def _library():
     if _LIB[0] is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _LIB[0] = load_library(SOURCE, "ssd_scan_launch",
-                               [p, p, p, p, p, p, p, i] + [i] * 6 + [p])
+                               [p] * 10 + [i] * 7 + [p])
     return _LIB[0]
 
 
@@ -113,9 +118,8 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, chunk: int):
 
 def ssd_scan_cuda(x, dt, A, Bm, Cm, chunk: int):
     """Launch the kernel on CUDA tensors (x, Bm, Cm f32 or bf16 and of one
-    dtype; S a multiple of ``chunk``; ``N * P`` at most
-    :data:`MAX_STATE`, P at most 64 and a divisor of 256): ``(y, final
-    state)``."""
+    dtype; S a multiple of ``chunk``, the chunk at most 256, N at most 128
+    and P at most 64, both multiples of 8): ``(y, final state)``."""
     _check(x, dt, A, Bm, Cm)
     dev = x.device
     if dev.type != "cuda":
@@ -124,20 +128,36 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, chunk: int):
         raise ValueError("x, Bm and Cm must share one dtype, f32 or bf16")
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
-    if S % chunk or N * P > MAX_STATE or P > _MAX_P or _THREADS % P:
-        raise ValueError(f"S {S} must be a multiple of the chunk {chunk}, "
-                         f"N * P = {N * P} at most {MAX_STATE}, P at most "
-                         f"{_MAX_P} and a divisor of {_THREADS}")
-    xc, bc, cc = (t.contiguous() for t in (x, Bm, Cm))
+    if (S % chunk or chunk > _MAX_Q or N > _MAX_N or N % 8 or P > _MAX_P
+            or P % 8):
+        raise ValueError(f"S {S} must be a multiple of the chunk {chunk} "
+                         f"(at most {_MAX_Q}), N {N} at most {_MAX_N} and P "
+                         f"{P} at most {_MAX_P}, both multiples of 8")
+    # The kernel loads 16 bytes at a time: a view that starts off a
+    # 16-byte boundary is copied.
+    xc, bc, cc = (t.contiguous() if t.is_contiguous() and
+                  t.data_ptr() % 16 == 0 else t.contiguous().clone()
+                  for t in (x, Bm, Cm))
     dtc = dt.to(device=dev, dtype=torch.float32).contiguous()
     ac = A.to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty_like(xc)
     h = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=dev)
+    # Each chunk's state increment, then the state entering it; each
+    # chunk's cum_end, and its cumulative sums of dt A (f64, the chunk
+    # padded to a multiple of 16 steps).
+    states = torch.empty((Bsz, S // chunk, H, N, P), dtype=torch.float32,
+                         device=dev)
+    cum_end = torch.empty((Bsz, S // chunk, H), dtype=torch.float32,
+                          device=dev)
+    cum = torch.empty((Bsz, S // chunk, H, -(-chunk // 16) * 16),
+                      dtype=torch.float64, device=dev)
     lib = _library()
     err = lib.ssd_scan_launch(
         xc.data_ptr(), dtc.data_ptr(), ac.data_ptr(), bc.data_ptr(),
-        cc.data_ptr(), y.data_ptr(), h.data_ptr(), _DTYPES[x.dtype], Bsz, S,
-        H, P, N, chunk, torch.cuda.current_stream(dev).cuda_stream)
+        cc.data_ptr(), y.data_ptr(), h.data_ptr(), states.data_ptr(),
+        cum_end.data_ptr(), cum.data_ptr(), _DTYPES[x.dtype], Bsz, S, H, P,
+        N, chunk,
+        torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, SOURCE, err)
     _LAUNCHES[0] += 1
     return y, h

@@ -9,7 +9,9 @@ Tolerances: the SSD scan's y and final state within 1e-5 of the largest
 magnitude in f32 (the bar of ``tests/test_kernels.py``; f32 products
 summed in another order), y within 1e-2 of it in bf16 (the same f32
 values rounded to bf16 may land one bf16 step apart: 2^-8 of a value) and
-the state within 1e-5; the RG-LRU scan within 1e-5 in f32 (the reference
+the state within 1e-5; at mamba2-370m's P, N and chunk with heads
+sharing B and C, in bf16 y within one bf16 step element by element and
+the state within 1e-4 (phase 11's bars); the RG-LRU scan within 1e-5 in f32 (the reference
 test's bar) and element by element within one bf16 step in bf16; flash
 attention at hd 256 and the windowed paged kernel at the bars of
 ``tests/test_torch_serving_cuda.py``; the served models, kernels against
@@ -82,6 +84,44 @@ def test_ssd_kernel_matches_plain(cuda_device, B, S, H, P, N, Q, dtype):
     if S <= 128:  # the step-by-step recurrence, in f32
         assert _rel(y, ssd_ref(x, dt, A, Bm, Cm)) < (
             1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def _bf16_step_excess(got, want) -> float:
+    """Largest ``|got - want| / (2^-7 |want| + 1e-5)``: at most 1 passes
+    (one bf16 step, phase 11's bar in ``chip_smoke.py``)."""
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() / (2.0 ** -7 * w.abs() + 1e-5)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,S", [(1, 512), (32, 700)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_heads_share_bc(cuda_device, H, S, dtype):
+    """mamba2-370m's P, N and chunk with one head and with 32 heads that
+    share one B and C (C B^T computed once for them), and a ragged S (700
+    steps, padded to three chunks): one launch; in bf16 y within one bf16
+    step of the plain version and the final state within 1e-4 of its
+    largest magnitude (phase 11's bars), in f32 both within 1e-5."""
+    rng = np.random.default_rng(H + S)
+    dev = cuda_device
+    x = _randn(rng, (2, S, H, 64), dtype, dev)
+    dt = torch.as_tensor(np.abs(rng.normal(size=(2, S, H))) * 0.5 + 0.01,
+                         dtype=torch.float32, device=dev)
+    A = torch.as_tensor(-np.abs(rng.normal(size=(H,))), dtype=torch.float32,
+                        device=dev)
+    Bm = _randn(rng, (2, S, 128), dtype, dev, 0.3)
+    Cm = _randn(rng, (2, S, 128), dtype, dev, 0.3)
+    before = ss.ssd_scan_launch_count()
+    y, h = ss.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan_launch_count() == before + 1
+    with plain_versions():
+        yp, hp = ss.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    if dtype == torch.bfloat16:
+        assert _bf16_step_excess(y, yp) <= 1
+        assert _rel(h, hp) <= 1e-4
+    else:
+        assert _rel(y, yp) <= 1e-5 and _rel(h, hp) <= 1e-5
 
 
 @pytest.mark.cuda
