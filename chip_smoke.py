@@ -16,7 +16,9 @@ after:
 5. ``simulate``'s stages on the full-size deployment (16 shards x 16,384
    lines, 2^22 requests), and the cache-scan kernel against its plain
    version on the first 2^17 requests of its rows;
-6. the reuse-distance kernel against its plain version at small shapes;
+6. the reuse-distance kernel against its plain version at small shapes,
+   and on general rows (prev not a previous-occurrence array, valid not
+   a prefix);
 7. the cache-scan kernel with its own policy and beta on each of 8 rows
    in one launch, against its plain version;
 8. the miss-rate-curve route at full width: ``sweep`` over 64 cache sizes
@@ -315,19 +317,27 @@ def reuse_bound(prev: np.ndarray, valid: np.ndarray) -> dict:
 
     - ``bytes_ms``: ``prev`` (4 B) and ``valid`` (1 B) read once and the
       distances (4 B) written once, over the HBM rate;
-    - ``ops_ms``: the compares a direct count needs, ``j - P[j] - 1`` for
-      each real position ``j`` with ``P[j] >= 0`` (the keys strictly
-      between the two accesses), over the int32 rate.
+    - ``ops_ms``: the compares of an O(n log n) count, ``n ceil(log2 n)``
+      for a row of ``n`` real (valid) positions, over the int32 rate.
 
-    An O(L log L) count (a Fenwick tree over ``P``) would need fewer
-    operations; this bound prices the algorithm the kernel runs."""
+    It prices the algorithm the kernel runs, a merge sort of each row
+    that counts on the way (``csrc/reuse_distance.cu``): a comparison sort
+    of ``n`` keys needs ``log2(n!) ~ n log2 n`` compares. Beside them, not
+    applied (``bound_terms_direct_count``), the compares of a direct
+    count, which the kernel ran before its redesign: ``j - P[j] - 1`` for
+    each real position ``j`` with ``P[j] >= 0``."""
     S, L = prev.shape
+    n = valid.sum(axis=1).astype(np.int64)
+    sort_compares = int(sum(int(x) * int(np.ceil(np.log2(x)))
+                            for x in n if x > 1))
     j = np.arange(L, dtype=np.int64)[None, :]
     reused = valid & (prev >= 0)
     compares = int(np.where(reused, j - prev.astype(np.int64) - 1, 0).sum())
     return dict(_largest(dict(bytes_ms=1e3 * 9 * S * L / HBM_BYTES_PER_S,
-                              ops_ms=1e3 * compares / INT32_OPS_PER_S)),
-                compares=compares)
+                              ops_ms=1e3 * sort_compares / INT32_OPS_PER_S)),
+                bound_terms_direct_count=dict(
+                    ops_ms=1e3 * compares / INT32_OPS_PER_S),
+                sort_compares=sort_compares, compares=compares)
 
 
 def compare(got: dict, want: dict, ctx: str) -> float:
@@ -371,7 +381,8 @@ def fmt_bound(b: dict) -> str:
         return ", ".join(f"{k[:-3]} {v:.4f}" for k, v in d.items())
     text = (f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
             f"{terms(b['bound_terms'])}")
-    for name in ("bound_terms_block_barrier", "bound_terms_per_head_cb"):
+    for name in ("bound_terms_block_barrier", "bound_terms_per_head_cb",
+                 "bound_terms_direct_count"):
         if name in b:
             text += f"; not applied: {terms(b[name])}"
     if "plan" in b:
@@ -449,6 +460,17 @@ def phase_build():
     if spilled:
         raise AssertionError(f"the tensor-core flash kernel spills: "
                              f"{spilled}")
+    # The RG-LRU kernels' special-function instructions (RGLRU_MUFU): a
+    # thread's gate loop takes 2 channels x 16 steps, and the scan kernel
+    # holds two copies of it (sub-chunks inside the sequence, and a ragged
+    # tail), 64 elements.
+    for fn in sass_mufu(build_library(rs.SOURCE)):
+        n = sum(fn["mufu"].values())
+        per = (f"; over its two copies of a thread's 32-element gate loop "
+               f"{n / 64:.3f} an element (RGLRU_MUFU = {RGLRU_MUFU})"
+               if "chunk_kernel" in fn["name"] else "")
+        log(f"[build] {rs.SOURCE.name} SASS {fn['name']}: {n} MUFU "
+            f"{fn['mufu']}{per}")
 
 
 def ptxas_functions(text: str) -> list:
@@ -714,8 +736,9 @@ def launch_counts() -> dict:
 
 def phase_reuse_vs_plain() -> None:
     """Kernel 2 against its plain version at small shapes: rows of several
-    lengths (none a multiple of the 256-query tile but the first), a row of
-    first accesses only, a row of pads only, ragged pads."""
+    lengths, a row of first accesses only, a row of pads only, ragged pads;
+    then general rows (prev not a previous-occurrence array, valid not a
+    prefix)."""
     from repro_torch.kernels import reuse_distance as rd
     from repro_torch.kernels.ref import reuse_distance_ref
     dev = torch.device("cuda")
@@ -741,6 +764,27 @@ def phase_reuse_vs_plain() -> None:
         log(f"[reuse kernel vs plain] S={S} L={L}: equal in every integer "
             f"(tolerance 0); first accesses {int((prev < 0).sum())}, pads "
             f"{int((~valid).sum())}")
+    # General rows: prev anywhere in [-1, L + 3) (a few across the whole
+    # int32 range), pads inside the rows; around the kernel's 2,048-position
+    # tile and past several of its merge levels.
+    for S, L in ((3, 2049), (2, 70001)):
+        prev = rng.integers(-1, L + 3, (S, L)).astype(np.int64)
+        far = rng.random((S, L)) < 0.05
+        prev[far] = rng.integers(np.iinfo(np.int32).min,
+                                 np.iinfo(np.int32).max, int(far.sum()))
+        valid = rng.random((S, L)) < 0.8
+        p = torch.as_tensor(prev.astype(np.int32), device=dev)
+        v = torch.as_tensor(valid, device=dev)
+        got = rd.reuse_distance_cuda(p, v)
+        torch.cuda.synchronize()
+        if not torch.equal(got, reuse_distance_ref(p, v)):
+            raise AssertionError(f"reuse kernel != plain on general rows at "
+                                 f"S={S} L={L}: "
+                                 f"{int((got != reuse_distance_ref(p, v)).sum())}"
+                                 " positions")
+        log(f"[reuse kernel vs plain] general rows S={S} L={L} (prev not a "
+            f"previous-occurrence array, valid not a prefix): equal in every "
+            f"integer (tolerance 0)")
 
 
 def phase_mixed_knobs(rates: dict) -> None:
@@ -869,12 +913,15 @@ def phase_mrc(spec) -> dict:
         f"included) {stages['distance']:.3f} s, histogram (the MRC pass "
         f"less those) {stages['histogram']:.2f} s; kernel {k_ms:.2f} ms "
         f"(CUDA events), plain {p_ms:.1f} ms, equal on the whole [{S}, {L}] "
-        f"array (tolerance 0); {fmt_bound(b)}, {b['compares']} compares; "
+        f"array (tolerance 0); {fmt_bound(b)}; {b['sort_compares']} "
+        f"compares of an O(n log n) count, {b['compares']} of the direct "
+        f"count; "
         f"miss rate at 16,384 lines {rep16.miss_rate:.6f}")
     return dict(launches=launches["reuse_distance"], max_abs_err=0.0,
                 ms=k_ms, plain_ms=p_ms, bound_ms=b["bound_ms"],
                 bound_by=b["bound_by"], bound_terms=b["bound_terms"],
-                compares=b["compares"],
+                bound_terms_direct_count=b["bound_terms_direct_count"],
+                sort_compares=b["sort_compares"], compares=b["compares"],
                 shape=f"{S}x{L} (the MRC route's rows, full size, lru)")
 
 
@@ -1631,21 +1678,65 @@ def _ssd_bound(x, Bm, chunk: int) -> dict:
                 flops=cb + rest, bytes=nbytes)
 
 
-# f32 operations an RG-LRU element takes: two gates (a multiply-add, an
-# exp, an add and a divide each), log a, a, 1 - a^2 (an exp, a subtract, a
-# max, a square root), i u, the product and the update's multiply-add.
+# f32 operations an RG-LRU element takes outside the special-function
+# unit: two gates (a multiply, an add, the sigmoid's negation and add), log
+# a, the scalings of exp's arguments, 2 log a, 1 - exp(2 log a), the max,
+# the square root's product, i u, the product and the update's multiply
+# and add. The kernel is built with --fmad=false, so each is its own
+# instruction with its own rounding (the plain version's): none fuses into
+# an FMA, while the data sheet's 67 TFLOP/s counts an FMA as two
+# operations. These issue at half that rate.
 RGLRU_OPS = 21
+F32_OPS_PER_S = 67e12 / 2
+# MUFU instructions an RG-LRU element takes: four ex2 (the two sigmoids'
+# exp, a = exp(log a), exp(2 log a)), two rcp (the sigmoids' divides) and
+# one rsq (the square root). Counted in the SASS of the built kernel
+# (cuobjdump -sass; the smoke's build phase prints the count, PERF.md
+# §6). Hopper's special-function unit returns 16 of them a clock an SM
+# (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0); the H100 SXM has 132 SMs at a boost clock of
+# 1,980 MHz (NVIDIA data sheet).
+RGLRU_MUFU = 7
+MUFU_PER_S = 16 * 132 * 1.98e9
 
 
 def _rglru_bound(u) -> dict:
     """u read once and h written once at HBM's rate (the five [W] vectors
-    too); RGLRU_OPS f32 operations an element at the data sheet's f32 rate
-    (67 TFLOP/s)."""
+    too; ``bytes_ms``); RGLRU_OPS f32 instructions an element at the f32
+    issue rate (``ops_ms``); RGLRU_MUFU special-function results an
+    element at the SFU's rate (``sfu_ms``)."""
     nbytes = 2 * u.numel() * u.element_size() + 5 * 4 * u.shape[-1]
     flops = RGLRU_OPS * u.numel()
+    mufu = RGLRU_MUFU * u.numel()
     return dict(_largest(dict(bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
-                              ops_ms=1e3 * flops / 67e12)),
-                flops=flops, bytes=nbytes)
+                              ops_ms=1e3 * flops / F32_OPS_PER_S,
+                              sfu_ms=1e3 * mufu / MUFU_PER_S)),
+                flops=flops, mufu=mufu, bytes=nbytes)
+
+
+def sass_mufu(lib) -> list:
+    """Each kernel of a built library with its MUFU instructions by
+    opcode, from ``cuobjdump -sass`` (``nvdisasm`` is not needed: the
+    library holds sm_90a SASS); empty where the toolkit has no
+    cuobjdump."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return []
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    fns = []
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fns.append(dict(name=m.group(1), mufu={}))
+        elif fns:
+            op = re.search(r"\b(MUFU\.\w+)", ln)
+            if op:
+                fns[-1]["mufu"][op.group(1)] = fns[-1]["mufu"].get(
+                    op.group(1), 0) + 1
+    return fns
 
 
 def phase_ssd_serve(dev=torch.device("cuda")) -> dict:
@@ -1922,7 +2013,7 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
     # RG-LRU: layer 0's prefill u, element by element within one bf16 step.
     u, *ps = cap["rglru"]
     kr.rglru_scan_cuda(u, *ps)  # warm-up
-    r_ms, h = cuda_ms(lambda: kr.rglru_scan_cuda(u, *ps), reps=5)
+    r_ms, h = cuda_ms(lambda: kr.rglru_scan_cuda(u, *ps), reps=20)
     rp_ms, hp = cuda_ms(lambda: kr.rglru_scan_plain(u, *ps))
     r_err = float((h.float() - hp.float()).abs().max())
     r_exc = _bf16_step_excess(h, hp)
@@ -1934,7 +2025,7 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
     log(f"[{tag}, rglru_scan vs plain] layer 0's prefill, u "
         f"{list(u.shape)} bf16: max |diff| {r_err:.3e}, |diff| / "
         f"({FLASH_ULP:g} |plain| + {FLASH_ABS:g}) {r_exc:.3f} (tolerance 1; "
-        f"planted fault {r_bad:.3f}); kernel {r_ms:.3f} ms, plain "
+        f"planted fault {r_bad:.3f}); kernel {r_ms:.4f} ms, plain "
         f"{rp_ms:.1f} ms, {fmt_bound(rb)}")
     if not r_exc <= 1:
         raise AssertionError(f"[{tag}] rglru kernel != plain: {r_exc}")

@@ -15,12 +15,19 @@ of ``pages[j]`` within its row, ``-1`` for a first access):
 Replaces the Pallas TPU kernel ``repro/kernels/reuse_distance.py:
 reuse_distance_kernel`` (body ``_dominance_kernel``), a ``[block, block]``
 broadcast compare per ``(row, query block)`` grid cell. On Hopper
-(``csrc/reuse_distance.cu``) one thread block takes 256 queries of one row
-and stages the row's keys through shared memory, 2,048 at a time, starting
-at the smallest ``P[j] + 1`` of its queries (first accesses and pads need
-no scan); each thread counts for its own query. What bounds it is the
-compares: ``Σ_j (j - P[j] - 1)`` of them over the reused positions, integer
-work on the SMs, far above the 9 bytes a position it must move.
+(``csrc/reuse_distance.cu``) the count takes O(L log L) per row:
+
+    F_j  = #{ k < j : valid[k], P[k] <= P[j] }
+    G(x) = #{ k : valid[k], max(k, P[k]) <= x }
+    d_j  = F_j - G(P[j])          (0 <= P[j] < j; 0 where P[j] >= j)
+
+``G`` is a histogram and its prefix sum; ``F`` is the count a merge sort
+of the row by ``(P[k], k)`` gives on the way (pads keyed above every
+``P``), its first 11 levels in shared memory on tiles of 2,048 positions,
+the rest as merge passes through device memory, each row cut at its last
+valid position. What bounds it is the bytes of those passes. The
+arithmetic is emulated step by step on the CPU in
+``tests/test_torch_reuse_rglru_redesign.py``.
 
 Dispatch: :func:`reuse_distances` takes the plain PyTorch version
 (:func:`repro_torch.kernels.ref.reuse_distance_ref`) for tensors on the
@@ -74,8 +81,11 @@ def build_reuse_distance():
 def _library():
     if _LIB[0] is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        _LIB[0] = load_library(SOURCE, "reuse_distance_launch",
-                               [p, p, p, i, i, p])
+        lib = load_library(SOURCE, "reuse_distance_launch",
+                           [p, p, p, p, i, i, p])
+        lib.reuse_distance_workspace_bytes.argtypes = [i, i]
+        lib.reuse_distance_workspace_bytes.restype = ctypes.c_longlong
+        _LIB[0] = lib
     return _LIB[0]
 
 
@@ -134,9 +144,11 @@ def reuse_distance_cuda(prev: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _library()
+    work = torch.empty(lib.reuse_distance_workspace_bytes(S, L),
+                       dtype=torch.uint8, device=dev)
     err = lib.reuse_distance_launch(
-        prev.data_ptr(), valid.data_ptr(), out.data_ptr(), S, L,
-        torch.cuda.current_stream(dev).cuda_stream)
+        prev.data_ptr(), valid.data_ptr(), out.data_ptr(), work.data_ptr(),
+        S, L, torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, SOURCE, err)
     _LAUNCHES[0] += 1
     return out

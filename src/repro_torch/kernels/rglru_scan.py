@@ -8,11 +8,13 @@ same pass from ``u`` and five per-channel vectors (f32 inside):
     log a = -8 softplus(lam) r,   b = sqrt(max(1 - a^2, 1e-12)) i u
 
 so the card reads ``u`` once and writes ``h`` once. It replaces the
-Pallas TPU kernel ``repro/kernels/rglru_scan.py:rglru_scan_kernel``.
-:func:`rglru_scan_plain` mirrors it step by step in PyTorch (the gates
-for the whole sequence, then the recurrence along it);
-:func:`repro_torch.kernels.ref.rglru_ref` returns the same recurrence in
-f32.
+Pallas TPU kernel ``repro/kernels/rglru_scan.py:rglru_scan_kernel``. The
+kernel splits the sequence into chunks of 128 steps and runs
+persistent blocks over (sequence, 64 channels, chunk) items: a block
+computes an item's gates once and keeps them in shared memory, composes
+the chunk into ``(prod a, h from 0)``, takes the carry from the chunks
+before it by a decoupled look-back, and runs its steps from that carry
+(emulated on the CPU in ``tests/test_torch_reuse_rglru_redesign.py``).
 
 Layouts: u ``[B, S, W]`` (f32 or bf16), the vectors ``[W]`` in any
 float dtype; h ``[B, S, W]`` in u's dtype.
@@ -58,8 +60,11 @@ def build_rglru_scan():
 def _library():
     if _LIB[0] is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        _LIB[0] = load_library(SOURCE, "rglru_scan_launch",
-                               [p, p, p, i, i, i, i, p])
+        lib = load_library(SOURCE, "rglru_scan_launch",
+                           [p, p, p, p, i, i, i, i, p])
+        lib.rglru_scan_workspace_bytes.argtypes = [i, i, i]
+        lib.rglru_scan_workspace_bytes.restype = ctypes.c_longlong
+        _LIB[0] = lib
     return _LIB[0]
 
 
@@ -112,9 +117,11 @@ def rglru_scan_cuda(u, w_a, b_a, w_x, b_x, lam) -> torch.Tensor:
                           for v in vecs])
     h = torch.empty_like(uc)
     lib = _library()
+    work = torch.empty(lib.rglru_scan_workspace_bytes(B, S, W),
+                       dtype=torch.uint8, device=dev)
     err = lib.rglru_scan_launch(
-        uc.data_ptr(), params.data_ptr(), h.data_ptr(), _DTYPES[u.dtype], B,
-        S, W, torch.cuda.current_stream(dev).cuda_stream)
+        uc.data_ptr(), params.data_ptr(), h.data_ptr(), work.data_ptr(),
+        _DTYPES[u.dtype], B, S, W, torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, SOURCE, err)
     _LAUNCHES[0] += 1
     return h

@@ -57,6 +57,60 @@ def test_reuse_kernel_matches_plain_on_card(cuda_device, S, L, n_pages):
         assert bool((got[1] == -1).all())
 
 
+def _general_rows(rng, S, L):
+    """``prev`` that no ``prev_occurrence`` call could give (any value in
+    ``[-1, L + 3)``, a few across the whole int32 range) and ``valid``
+    that is no prefix (pads inside the row)."""
+    prev = rng.integers(-1, L + 3, (S, L)).astype(np.int64)
+    far = rng.random((S, L)) < 0.05
+    prev[far] = rng.integers(np.iinfo(np.int32).min, np.iinfo(np.int32).max,
+                             int(far.sum()))
+    valid = rng.random((S, L)) < 0.8
+    return prev.astype(np.int32), valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,L", [(3, 1), (2, 2047), (3, 2048), (3, 2049),
+                                 (2, 4096), (2, 4097), (5, 10000),
+                                 (2, 70001)])
+def test_reuse_kernel_general_inputs_on_card(cuda_device, S, L):
+    """General ``prev`` / ``valid`` at lengths around the kernel's
+    2,048-position tile and its merge levels; one row of only first
+    accesses and one of only pads: every integer equal, one launch."""
+    rng = np.random.default_rng(S * 131 + L)
+    prev, valid = _general_rows(rng, S, L)
+    prev[1] = -1
+    valid[1] = True
+    if S > 2:
+        valid[2] = False
+    p = torch.as_tensor(prev, device=cuda_device)
+    v = torch.as_tensor(valid, device=cuda_device)
+    before = trd.reuse_compile_count()
+    got = trd.reuse_distances(p, v)
+    torch.cuda.synchronize()
+    assert trd.reuse_compile_count() == before + 1
+    assert torch.equal(got, reuse_distance_ref(p, v))
+    assert bool((got[1] == DIST_INF).all())
+    if S > 2:
+        assert bool((got[2] == -1).all())
+
+
+@pytest.mark.cuda
+def test_reuse_kernel_mrc_shape_on_card(cuda_device):
+    """The MRC route's shape: 16 rows of 2^19, each about half pads (its
+    real requests padded to the power-of-two bucket)."""
+    S, L = 16, 2**19
+    rng = np.random.default_rng(19)
+    counts = rng.integers(L // 2 - 2000, L // 2 + 2000, S)
+    pages = rng.integers(0, 2**20, (S, L)).astype(np.int32)
+    prev, valid = trd.prev_occurrence(pages, counts)
+    p = torch.as_tensor(prev, device=cuda_device)
+    v = torch.as_tensor(valid, device=cuda_device)
+    got = trd.reuse_distances(p, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, reuse_distance_ref(p, v, block=512))
+
+
 @pytest.mark.cuda
 def test_cache_scan_mixed_knobs_one_launch(cuda_device):
     """Each of 8 rows with its own policy and beta in one launch: every

@@ -143,7 +143,11 @@ def test_ssd_kernel_decay_never_overflows(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,W", [(2, 64, 32), (1, 128, 64), (3, 77, 200),
-                                   (2, 333, 4096)])  # recurrentgemma's width
+                                   (2, 333, 4096),  # recurrentgemma's width
+                                   (3, 1, 64),      # one step
+                                   (2, 50, 96),     # below one chunk
+                                   (2, 200, 77),    # odd W: one channel a load
+                                   (1, 3072, 4096)])  # many chunks
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rglru_kernel_matches_plain(cuda_device, B, S, W, dtype):
     rng = np.random.default_rng(S + W)
@@ -159,6 +163,28 @@ def test_rglru_kernel_matches_plain(cuda_device, B, S, W, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(h, hp, atol=1e-5, rtol=0)
         torch.testing.assert_close(h, rglru_ref(u, *ps), atol=1e-5, rtol=0)
+    else:
+        d = (h.float() - hp.float()).abs()
+        assert bool((d <= 2.0 ** -7 * hp.float().abs() + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W", [(2, 100, 64), (1, 1000, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_repeats_its_bits(cuda_device, B, S, W, dtype):
+    """Two launches give the same bits (the look-back's carry does not
+    depend on which chunks it found published), at the bars above."""
+    rng = np.random.default_rng(S * 3 + W)
+    dev = cuda_device
+    u = _randn(rng, (B, S, W), dtype, dev)
+    ps = [_randn(rng, (W,), dtype, dev, 0.5) for _ in range(5)]
+    h = rs.rglru_scan_cuda(u, *ps)
+    again = rs.rglru_scan_cuda(u, *ps)
+    torch.cuda.synchronize()
+    assert torch.equal(h.view(torch.int8), again.view(torch.int8))
+    hp = rs.rglru_scan_plain(u, *ps)
+    if dtype == torch.float32:
+        torch.testing.assert_close(h, hp, atol=1e-5, rtol=0)
     else:
         d = (h.float() - hp.float()).abs()
         assert bool((d <= 2.0 ** -7 * hp.float().abs() + 1e-6).all())
