@@ -52,6 +52,16 @@ after:
    the tier state equal and the hidden states and logprobs within their
    bars, and planted faults (the window's token mask dropped; the
    RG-LRU handoff state unrounded) above the bar.
+13. the chunked replay at full size: phase 5's deployment through
+   ``simulate_stream`` at ``DEFAULT_CHUNK`` (16 launches of the
+   cache-scan kernel's masked mode), its counters and report equal to
+   phase 5's, and again with ``donate=False``; a stop at 2^21 requests,
+   the checkpoint pickled and resumed (equal results, equal peak device
+   memory in both halves, at most two buffer sets); a two-tenant mix at
+   full width against a one-shot ``tier1_counters``; the masked kernel
+   against its plain version from the checkpoint's carry with pads
+   mid-row, in the default plan, at cluster 1 and in the scratch plan;
+   ``engine="scan"`` on the card against the fused kernel.
 
 It prints:
 
@@ -61,7 +71,8 @@ It prints:
   launches on their paths, its agreement with the plain version, its time, the plain
   version's time and its bound, term by term (paged attention's time in
   a loop of wrapper calls, and from a CUDA graph of the kernel's launches
-  alone as ``ms_graph``);
+  alone as ``ms_graph``; the cache scan's chunked replay under
+  ``chunked_`` keys);
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits nonzero. Without CUDA, or without the
@@ -706,7 +717,8 @@ def phase_full_size(rates: dict) -> dict:
         f"integers exact, f32 bit for bit); kernel {pk_ms:.1f} ms, plain "
         f"{pp_ms:.1f} ms, {fmt_bound(pre_b)}; evictions/row "
         f"{int(pout['evictions'].min())}..{int(pout['evictions'].max())}")
-    return dict(counters=ctr, launches=launches, ms=pk_ms, plain_ms=pp_ms,
+    return dict(counters=ctr, report=rep, rows=sh_pages, launches=launches,
+                ms=pk_ms, plain_ms=pp_ms, main_tier1_stage_s=t2 - t1,
                 max_abs_err=err, **pre_b,
                 shape=f"{B}x{P} (first {P} requests of the main path's "
                       f"rows), n_lines={cfg.n_lines}, n_windows={W}, ws",
@@ -2139,6 +2151,331 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
     return rglru, at_rg
 
 
+def _timed_masked_launches():
+    """Wrap the masked-mode launcher: each launch between two CUDA events
+    (recorded on the stream, so nothing waits), with its rows' misses and
+    hits before and after (device copies). Returns ``(records, restore)``."""
+    from repro_torch.kernels import cache_scan as cs
+    records = []
+    launch = cs.masked_cache_scan_cuda
+
+    def timed(cfg, hyper, state, acc, pages, *rest, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        before = (acc.misses.clone(), acc.hits.clone())
+        start.record()
+        out = launch(cfg, hyper, state, acc, pages, *rest, **kw)
+        stop.record()
+        records.append((start, stop, before,
+                        (acc.misses.clone(), acc.hits.clone()),
+                        tuple(pages.shape), carry_bytes(state, acc)))
+        return out
+
+    cs.masked_cache_scan_cuda = timed
+
+    def restore():
+        cs.masked_cache_scan_cuda = launch
+    return records, restore
+
+
+def carry_bytes(state, acc) -> int:
+    from repro_torch.kernels import cache_scan as cs
+    return sum(x.numel() * x.element_size()
+               for x in cs.carry_leaves(state, acc))
+
+
+def chunked_bound(records, main_terms: dict, cfg, plan) -> dict:
+    """Least time for a chunked replay's launches, each priced as
+    :func:`bound` prices a launch, summed: its rows read once (12 B a
+    position), its carry read and written once; the per-line state and
+    operations of the same real requests (passes every K of them and the
+    evictions: phase 5's terms, since the requests are the same); and
+    each launch's walker chain, ``misses + ceil(hits / 32)`` iterations of
+    its longest row at the probe's step time for its shape."""
+    from repro_torch.kernels import probe
+    io = chain = 0.0
+    steps: dict = {}
+    for _, _, (m0, h0), (m1, h1), shape, cbytes in records:
+        B, L = shape
+        if shape not in steps:
+            steps[shape] = probe.walker_step_ms(
+                "cuda", n_rows=B, threads=plan.threads, steps=L, K=plan.K,
+                n_lines=cfg.n_lines) / L
+        misses = (m1 - m0).cpu().numpy().astype(np.int64)
+        hits = (h1 - h0).cpu().numpy().astype(np.int64)
+        chain += steps[shape] * int((misses + -(-hits // 32)).max())
+        io += 12 * B * L + 2 * cbytes
+    terms = dict(io_bytes_ms=1e3 * io / HBM_BYTES_PER_S,
+                 state_bytes_pass_ms=main_terms["state_bytes_pass_ms"],
+                 ops_pass_ms=main_terms["ops_pass_ms"],
+                 walker_chain_ms=chain)
+    return _largest(terms)
+
+
+def phase_chunked_replay(full_ctr, full_rep, full_rows, full: dict,
+                         rates: dict) -> dict:
+    """Phase 13: the chunked replay at full size through the public entry
+    points. (a) phase 5's deployment by ``simulate_stream`` at
+    ``DEFAULT_CHUNK`` (16 chunks of rows of 32,768), its counters and
+    report against phase 5's one-shot ones, then the synchronous
+    ``donate=False`` baseline; (b) a stop at 2^21 requests, the checkpoint
+    pickled and resumed, equal peak memory in both halves; (c) a
+    two-tenant mix at full width against a one-shot ``tier1_counters``;
+    (d) the masked kernel against its plain version on 2^13 requests of
+    the shard rows from the checkpoint's carry, pads mid-row and at the
+    tails, in three plans; (e) ``engine="scan"`` on the card."""
+    import pickle
+
+    from repro_torch.core.traffic import TenantSpec, TrafficSpec, tenant_mix
+    from repro_torch.kernels import cache_scan as cs
+    from repro_torch.sim import (
+        SimSpec, report_from_counters, simulate_stream,
+        stream_tier1_counters, tier1_counters)
+    from repro_torch.sim import stream as stream_mod
+    from repro_torch.sim.stream import DEFAULT_CHUNK, _to_device
+    from repro_torch.storage import tiered_store as ts
+    t_phase = time.perf_counter()
+    spec = full_size_spec()
+    cfg = spec.store
+    dev = torch.device("cuda")
+
+    # (a) the replay, timed launch by launch; the counters it reports on
+    # are caught on their way from stream_tier1_counters.
+    caught = []
+    replay = stream_mod.stream_tier1_counters
+
+    def catch(*args, **kw):
+        out = replay(*args, **kw)
+        caught.append(out[0])
+        return out
+
+    records, restore = _timed_masked_launches()
+    stream_mod.stream_tier1_counters = catch
+    reset_launch_counts()
+    ts.reset_stream_compile_count()
+    prof: dict = {}
+    try:
+        t0 = time.perf_counter()
+        rep = simulate_stream(spec, profile=prof, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = launch_counts()["cache_scan"]
+        n_sets = ts.stream_compile_count()
+        restore()
+        base_prof: dict = {}
+        t0 = time.perf_counter()
+        base_rep = simulate_stream(spec, donate=False, profile=base_prof,
+                                   device="cuda")
+        base_wall = time.perf_counter() - t0
+    finally:
+        restore()
+        stream_mod.stream_tier1_counters = replay
+    if launches != len(records) or launches != prof["stream_chunks"]:
+        raise AssertionError(f"{launches} cache-scan launches for "
+                             f"{prof['stream_chunks']} chunks")
+    k_ms = sum(a.elapsed_time(b) for a, b, *_ in records)
+    want = json.dumps(full_rep.to_dict(), sort_keys=True)
+    for tag, got_rep, got_ctr in (("", rep, caught[0]),
+                                  ("donate=False ", base_rep, caught[1])):
+        if json.dumps(got_rep.to_dict(), sort_keys=True) != want:
+            raise AssertionError(f"{tag}simulate_stream's report != phase "
+                                 "5's")
+        for f in full_ctr._fields:
+            if not np.array_equal(getattr(got_ctr, f),
+                                  getattr(full_ctr, f)):
+                raise AssertionError(f"{tag}replay != one-shot in {f}")
+    plan = cs.cache_scan_plan(cfg, spec.n_windows, spec.n_shards)
+    cb = chunked_bound(records, full["main_bound_terms"], cfg, plan)
+    shapes = sorted({r[4] for r in records})
+
+    def fmt_prof(p, total):
+        chunks = sum(v for v in p.values() if isinstance(v, float))
+        return (", ".join(f"{k} {v:.3f} s" for k, v in p.items()
+                          if isinstance(v, float))
+                + f", the rest (the whole stream's generation, mapping and "
+                  f"binning before the first chunk, the report) "
+                  f"{total - chunks:.3f} s")
+    log(f"[chunked replay] simulate_stream at chunk {DEFAULT_CHUNK}: "
+        f"{launches} launches of {shapes} rows, {wall:.2f} s wall (phase "
+        f"5's one-shot tier1_counters, generation included, "
+        f"{full['main_tier1_stage_s']:.2f} s); {n_sets} buffer sets; "
+        f"kernel {k_ms:.1f} ms summed (CUDA events), {fmt_bound(cb)}, the "
+        f"carry {records[0][5]} B in and out a launch; "
+        f"{fmt_prof(prof, wall)}; donate=False: {base_wall:.2f} s wall "
+        f"({fmt_prof(base_prof, base_wall)}); both: Tier1Counters equal "
+        f"phase 5's in every field, report to_dict identical to phase 5's")
+
+    # (b) stop at 2^21, pickle, resume: bit-exact, equal peak memory.
+    half = 2**21
+    ts.reset_stream_compile_count()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _, _, ck = stream_tier1_counters(spec, max_requests=half, device="cuda")
+    peak1 = torch.cuda.max_memory_allocated() - base_mem
+    blob = pickle.dumps(ck)
+    ck2 = pickle.loads(blob)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    ctr2, _, end = stream_tier1_counters(spec, checkpoint=ck2, device="cuda")
+    peak2 = torch.cuda.max_memory_allocated() - base_mem
+    for f in full_ctr._fields:
+        if not np.array_equal(getattr(ctr2, f), getattr(full_ctr, f)):
+            raise AssertionError(f"resumed replay != uninterrupted in {f}")
+    more_sets = ts.stream_compile_count()
+    buf_set = 3 * 4 * max(B * L for B, L in shapes)
+    if (not end.done or n_sets + more_sets > 2
+            or abs(peak1 - peak2) > buf_set):
+        raise AssertionError(
+            f"resume: done={end.done}, {n_sets} + {more_sets} buffer sets, "
+            f"peak memory {peak1} vs {peak2} B (one set {buf_set} B)")
+    log(f"[chunked replay, resume] stopped at {half} requests, checkpoint "
+        f"pickled ({len(blob)} B) and resumed: counters equal the "
+        f"uninterrupted replay in every field; peak device memory above "
+        f"the phase's start {peak1} B (first half), {peak2} B (second), "
+        f"one buffer set {buf_set} B; buffer sets: {n_sets} in (a), "
+        f"{more_sets} more here")
+
+    # (c) the two-tenant mix at full width.
+    mix = tenant_mix(
+        TenantSpec(name="oltp", rate=600.0, n_pages=2**20, zipf_s=1.3,
+                   write_fraction=0.4),
+        TenantSpec(name="analytics", rate=200.0, n_pages=3 * 2**20,
+                   zipf_s=0.9),
+        n_requests=2**22)
+    window_dt = mix.n_requests / (600.0 + 200.0) / 32
+    tspec = SimSpec(traffic=mix, store=cfg, n_shards=16, mapping="random",
+                    n_windows=32, window_dt=window_dt, lam=200.0)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tctr, tc, _ = stream_tier1_counters(tspec, device="cuda")
+    t_wall = time.perf_counter() - t0
+    t_launches = launch_counts()["cache_scan"]
+    trep = report_from_counters(tspec, tctr, tenants=tc)
+    one = tier1_counters(tspec, device="cuda")
+    for f in one._fields:
+        if not np.array_equal(getattr(tctr, f), getattr(one, f)):
+            raise AssertionError(f"tenant replay != one-shot in {f}")
+    if not (tctr.evictions > 0).all():
+        raise AssertionError(f"a shard never evicted: {tctr.evictions}")
+    if not (np.array_equal(tc.win_requests.sum(0),
+                           tctr.win_requests.sum(0))
+            and np.array_equal(tc.win_misses.sum(0),
+                               tctr.win_misses.sum(0))
+            and sum(t.requests for t in trep.tenants) == trep.requests
+            and sum(t.misses for t in trep.tenants) == trep.misses):
+        raise AssertionError("per-tenant counters do not sum to the pool")
+    per = "; ".join(f"{t.name}: {t.requests} requests, miss rate "
+                    f"{t.miss_rate:.4f}, mean response "
+                    f"{t.mean_response_s:.6g} s" for t in trep.tenants)
+    log(f"[chunked replay, tenants] oltp + analytics over {mix.n_pages} "
+        f"pages, {mix.n_requests} requests, 32 windows of {window_dt} s "
+        f"({32 * tc.n_tenants} composite), 16 shards x {cfg.n_lines} "
+        f"lines: {t_wall:.2f} s wall, {t_launches} launches; counters "
+        f"equal a one-shot tier1_counters; every shard evicts "
+        f"({int(tctr.evictions.min())}..{int(tctr.evictions.max())}); "
+        f"tenants sum to the pool; {per}")
+
+    # (d) the masked kernel against its plain version, from the
+    # checkpoint's carry (full caches), on 2^13 requests of the shard rows
+    # cut into three unequal chunks with pads planted.
+    P, W = 2**13, spec.n_windows
+    rng = np.random.default_rng(13)
+    rows = full_rows[:, :P]
+    B = rows.shape[0]
+    writes_np = rng.random(rows.shape) < 0.3
+    chunks = []
+    for lo, hi in ((0, 1900), (1900, 5600), (5600, P)):
+        # n real requests a row at random positions among the first
+        # n + 5n/16 of n + 3n/8 (pads mid-row), then a padded tail.
+        n = hi - lo
+        shape = (B, n + n // 4 + n // 8)
+        pages = np.zeros(shape, np.int32)
+        writes = np.zeros(shape, bool)
+        win = np.full(shape, W + 1, np.int32)
+        for b in range(B):
+            real = np.sort(rng.choice(shape[1] - n // 16, n, replace=False))
+            pages[b, real] = rows[b, lo:hi]
+            writes[b, real] = writes_np[b, lo:hi]
+            win[b, real] = (np.arange(lo, hi) * W) // P
+        chunks.append([torch.as_tensor(x, device=dev)
+                       for x in (pages, writes, win)])
+    hyper = cs.per_row(cfg.hyper(), B, dev)
+    carry0 = _to_device(ck.carry, dev)
+    t0 = time.perf_counter()
+    want = carry0
+    for c in chunks:
+        want = cs.masked_cache_scan_plain(cfg, hyper, *want, *c, n_windows=W)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    wleaves = cs.carry_leaves(*want)
+    errs, kms = [], {}
+    for name, launch in (("default", {}), ("cluster 1", dict(cluster=1)),
+                         ("scratch", dict(smem_state=False))):
+        got = _to_device(ck.carry, dev)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for c in chunks:
+            got = cs.masked_cache_scan_cuda(cfg, hyper, *got, *c,
+                                            n_windows=W, **launch)
+        stop.record()
+        torch.cuda.synchronize()
+        kms[name] = start.elapsed_time(stop)
+        for i, (x, y) in enumerate(zip(cs.carry_leaves(*got), wleaves)):
+            same = (torch.equal(x.view(torch.int32), y.view(torch.int32))
+                    if y.dtype == torch.float32 else torch.equal(x, y))
+            if not same:
+                raise AssertionError(f"masked kernel ({name}) != plain "
+                                     f"in carry leaf {i}")
+            errs.append(float((x.double() - y.double()).abs().max()))
+    ev = (want[1].evictions - carry0[1].evictions).cpu()
+    if not (ev > 0).all():
+        raise AssertionError("a row never evicted in the compared chunks")
+    real_n = sum(int((c[2] < W).sum()) for c in chunks)
+    log(f"[chunked replay, masked kernel vs plain] {B} rows from the "
+        f"checkpoint's carry, three chunks of "
+        f"{[tuple(c[0].shape) for c in chunks]} positions ({real_n} real "
+        f"requests, pads mid-row and at the tails), n_lines={cfg.n_lines}, "
+        f"{W} windows: every carry leaf equal (tolerance 0: integers "
+        f"exact, f32 bit for bit, the key) in the default plan, at cluster "
+        f"1 and in the device-scratch plan; kernel "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in kms.items())
+        + f"; plain {plain_ms:.1f} ms; evictions/row "
+        f"{int(ev.min())}..{int(ev.max())}")
+
+    # (e) the per-step engine on the card.
+    sspec = SimSpec(
+        traffic=TrafficSpec(kind="irm", n_requests=1200, n_pages=512,
+                            zipf_s=1.1, write_fraction=0.3, seed=3),
+        store=ts.StoreConfig(n_lines=64, policy="ws"), n_shards=4,
+        n_windows=7)
+    t0 = time.perf_counter()
+    scan = tier1_counters(sspec, engine="scan", device="cuda")
+    scan_s = time.perf_counter() - t0
+    fused = tier1_counters(sspec, device="cuda")
+    for f in fused._fields:
+        if not np.array_equal(getattr(scan, f), getattr(fused, f)):
+            raise AssertionError(f"engine='scan' != fused in {f}")
+    log(f"[chunked replay, scan engine] engine='scan' on the card "
+        f"(4 shards x 64 lines, 1,200 requests): equal to the fused "
+        f"kernel in every field, {scan_s:.2f} s; phase 13 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(chunked_launches=launches, chunked_ms=k_ms,
+                chunked_bound_ms=cb["bound_ms"],
+                chunked_bound_by=cb["bound_by"],
+                chunked_bound_terms=cb["bound_terms"],
+                chunked_wall_s=wall, chunked_baseline_wall_s=base_wall,
+                chunked_profile=prof, chunked_shape=(
+                    f"{launches} launches of {shapes} rows (simulate_stream "
+                    f"at chunk {DEFAULT_CHUNK}), n_lines={cfg.n_lines}, "
+                    f"n_windows={spec.n_windows}, ws"),
+                chunked_max_abs_err=max(errs),
+                chunked_masked_ms=kms["default"],
+                chunked_masked_plain_ms=plain_ms,
+                chunked_tenant_wall_s=t_wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2151,6 +2488,7 @@ def main() -> int:
     phase_worked_example()
     full = phase_full_size(rates)
     full_ctr = full.pop("counters")
+    full_rep, full_rows = full.pop("report"), full.pop("rows")
     phase_reuse_vs_plain()
     phase_mixed_knobs(rates)
     mrc = phase_mrc(full_size_spec().replace(
@@ -2159,13 +2497,15 @@ def main() -> int:
     serving = phase_serve()
     ssd = phase_ssd_serve()
     rglru, at_rg = phase_rglru_serve()
+    chunked = phase_chunked_replay(full_ctr, full_rep, full_rows, full,
+                                   rates)
     for entry in serving:
         entry.update(at_rg[entry["name"]])
     cache_scan = dict(
         name="cache_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/cache_scan.cu",
         replaces="src/repro/kernels/cache_scan.py:385", library_ms=None,
-        **full, **mega)
+        **full, **mega, **chunked)
     reuse = dict(
         name="reuse_distance", route="cuda",
         source="src/repro_torch/kernels/csrc/reuse_distance.cu",

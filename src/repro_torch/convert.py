@@ -9,11 +9,17 @@ words). The reference keeps it as a JAX pytree; flattened to numpy
 across here, on any device, as the port's :class:`StoreState` — so a run
 can resume in the port where the reference left off.
 
+A chunked replay begun in the reference resumes in the port through
+:func:`stream_checkpoint_from_numpy`, which carries the reference's
+``StreamCheckpoint`` (its carry a numpy ``(StoreState, _Accum)`` tree)
+across as the port's.
+
 A served model's parameters come across with :func:`params_from_numpy`,
 so that the port and the reference compute the same model.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
@@ -21,11 +27,13 @@ import torch
 
 from repro_torch.core.online_learning import OLState
 from repro_torch.core.prefetch import PrefetchState
+from repro_torch.core.traffic import TenantSpec, TrafficSpec
 from repro_torch.storage.cache_state import CacheState
-from repro_torch.storage.tiered_store import StoreHyper, StoreState
+from repro_torch.storage.tiered_store import (
+    Accum, StoreConfig, StoreHyper, StoreState, tree_map)
 
 __all__ = ["store_state_from_numpy", "store_hyper_from_numpy",
-           "params_from_numpy"]
+           "stream_checkpoint_from_numpy", "params_from_numpy"]
 
 _GROUPS = ((CacheState, (torch.int32, torch.bool, torch.bool, torch.int32,
                          torch.int32)),
@@ -71,6 +79,67 @@ def store_hyper_from_numpy(alpha, beta, threshold, policy_idx, *,
         threshold=torch.tensor(np.asarray(threshold, np.float32), **f32),
         policy_idx=torch.tensor(np.asarray(policy_idx, np.int32),
                                    dtype=torch.int32, device=device),
+    )
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+# The spec classes a reference cache signature holds, by name.
+_SPEC_CLASSES = {c.__name__: c for c in (TrafficSpec, TenantSpec,
+                                          StoreConfig)}
+
+
+def _port_value(x):
+    """A reference signature value with its spec dataclasses rebuilt as the
+    port's classes of the same name and fields."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        cls = _SPEC_CLASSES[type(x).__name__]
+        return cls(**{f.name: _port_value(getattr(x, f.name))
+                      for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        return tuple(_port_value(v) for v in x)
+    return x
+
+
+def stream_checkpoint_from_numpy(ck, *, device=None):
+    """The port's :class:`~repro_torch.sim.stream.StreamCheckpoint` from
+    the reference's (``repro.sim.stream.StreamCheckpoint``): its carry (a
+    numpy ``(StoreState, _Accum)`` tree) becomes the port's ``(StoreState,
+    Accum)`` — host numpy leaves, as the port's checkpoints hold them, or
+    tensors on ``device`` when one is given — and its cache signature the
+    port spec's (the reference's spec classes rebuilt as the port's), so
+    ``stream_tier1_counters(spec, checkpoint=...)`` resumes the replay in
+    the port where the reference stopped."""
+    from repro_torch.sim.stream import StreamCheckpoint
+    state_np, acc_np = ck.carry
+    state = store_state_from_numpy(_leaves(state_np), device=device)
+    acc_leaves = _leaves(acc_np)
+    if len(acc_leaves) != len(Accum._fields):
+        raise ValueError(f"expected {len(Accum._fields)} accumulator "
+                         f"leaves, got {len(acc_leaves)}")
+    acc = Accum(*(torch.tensor(np.asarray(x), device=device)
+                  for x in acc_leaves))
+    carry = (state, acc)
+    if device is None:
+        carry = tree_map(torch.Tensor.numpy, carry)
+    return StreamCheckpoint(
+        signature=_port_value(ck.signature),
+        offset=int(ck.offset),
+        total=int(ck.total),
+        counts=np.array(ck.counts, copy=True),
+        shard_writes=np.array(ck.shard_writes, copy=True),
+        carry=carry,
+        n_pages=int(ck.n_pages),
+        n_windows=int(ck.n_windows),
+        n_tenants=int(ck.n_tenants),
+        tenant_state=ck.tenant_state,
+        last_tenant=(None if ck.last_tenant is None
+                     else np.array(ck.last_tenant, copy=True)),
+        fluid_q0=ck.fluid_q0,
     )
 
 

@@ -25,8 +25,14 @@ Dispatch: :func:`fused_cache_scan` takes the plain PyTorch version
 launches the kernel for CUDA tensors; there is no fallback between them.
 Both take the same arguments, run every row from the cold ``init_store``
 state with its own PRNG key, and return the same counters.
-:func:`cache_scan_launch_count` counts kernel launches (the reference's
-compile count, as a launch count).
+
+:func:`masked_cache_scan` is the chunked replay's mode of the same kernel
+(``cache_scan_ref(masked=True)`` on the CPU): each row resumes from a
+carried ``(StoreState, Accum)`` — the plain version's tensors, which the
+kernel reads and updates in place — pads (window id ``>= n_windows``)
+change nothing, and the key advances once per real request.
+:func:`cache_scan_launch_count` counts kernel launches of both modes (the
+reference's compile count, as a launch count).
 """
 from __future__ import annotations
 
@@ -44,6 +50,10 @@ __all__ = [
     "fused_cache_scan",
     "cache_scan_plain",
     "cache_scan_cuda",
+    "masked_cache_scan",
+    "masked_cache_scan_plain",
+    "masked_cache_scan_cuda",
+    "carry_leaves",
     "cold_keys",
     "cache_scan_threads",
     "cache_scan_plan",
@@ -81,7 +91,8 @@ def _library():
     if _LIB[0] is None:
         lib = ctypes.CDLL(str(build_cache_scan()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cache_scan_launch.argtypes = [p] * 15 + [i] * 13 + [p]
+        lib.cache_scan_launch.argtypes = ([p] * 15 + [i] * 13
+                                          + [ctypes.POINTER(p), i, p])
         lib.cache_scan_launch.restype = i
         lib.cache_scan_smem_bytes.argtypes = [i] * 8
         lib.cache_scan_smem_bytes.restype = ctypes.c_size_t
@@ -114,18 +125,21 @@ class Plan(NamedTuple):
 
 
 def cache_scan_plan(cfg, n_windows: int, n_rows: int, *,
-                    cluster=None) -> Plan:
+                    cluster=None, smem_state=None) -> Plan:
     """The plan of a launch of ``n_rows`` rows, chosen from the sizes alone:
     the state in shared memory where it fits beside a look-ahead of
     ``_LOOKAHEAD`` requests, else in device scratch; 8, 4 or 2 blocks a row
     where the rows' clusters fit the card at once and the cache is large
-    (the library decides), else 1. ``cluster`` forces the cluster size.
-    Raises if the card's occupancy query fails."""
+    (the library decides), else 1. ``cluster`` forces the cluster size and
+    ``smem_state=False`` the device-scratch plan (the tests hold both
+    plans against each other). Raises if the card's occupancy query
+    fails."""
     lib = _library()
     N, K = cfg.n_lines, _LOOKAHEAD
     dims = (min(cfg.pred_cap, cfg.epoch_width), cfg.prefetch_width,
             cfg.prefetch_buf, n_windows, cfg.epoch_width)
-    for in_smem in (True, False):
+    for in_smem in ((True, False) if smem_state is None
+                    else (bool(smem_state),)):
         smem = lib.cache_scan_smem_bytes(N, K, *dims, int(in_smem))
         if smem <= _SMEM_MAX:
             threads = cache_scan_threads(N)
@@ -152,7 +166,7 @@ def per_row(hyper, n_rows: int, device):
         for x, d in zip(hyper, (torch.float32,) * 3 + (torch.int32,))))
 
 
-def _check_rows(pages, writes, win):
+def _check_rows(pages, writes, win, *, check_pages: bool = True):
     if pages.dim() != 2 or writes.shape != pages.shape \
             or win.shape != pages.shape:
         raise ValueError("pages, writes and win must be [B, L] alike, got "
@@ -160,7 +174,7 @@ def _check_rows(pages, writes, win):
                          f"{tuple(win.shape)}")
     if not (pages.device == writes.device == win.device):
         raise ValueError("pages, writes and win must share one device")
-    if pages.numel() and int(pages.min()) < 0:
+    if check_pages and pages.numel() and int(pages.min()) < 0:
         raise ValueError("page ids must be non-negative (-1 marks a free "
                          "cache line)")
 
@@ -241,7 +255,7 @@ def _launch(cfg, hyper, keys, pages, writes, win, *, n_windows: int,
     err = lib.cache_scan_launch(
         *ptrs, B, L, N, ew, ring, int(cfg.prefetch), cfg.prefetch_width,
         cfg.prefetch_buf, W, plan.K, int(plan.smem_state), plan.cluster,
-        plan.threads, stream)
+        plan.threads, None, 0, stream)
     if err != 0:
         raise RuntimeError("cache_scan kernel launch failed: "
                            + lib.cache_scan_error_string(err).decode())
@@ -272,3 +286,122 @@ def fused_cache_scan(cfg, hyper, keys, pages, writes, win, *,
         raise ValueError(f"no cache-scan path for device {dev}")
     return cache_scan_cuda(cfg, hyper, keys, pages, writes, win,
                            n_windows=n_windows)
+
+
+def carry_leaves(state, acc) -> list:
+    """The tensors of a ``(StoreState, Accum)`` carry in the kernel's
+    pointer-table order: cache (tags, valid, dirty, freq, ts), learner
+    (weights, pred, pred_n, mispred, epoch_misses, chosen), prefetcher
+    (ptags, pvalid, last_miss, stride, conf, issued, useful), ``t``,
+    ``key``, then the accumulators in field order."""
+    return [*state.cache, *state.ols, *state.pf, state.t, state.key, *acc]
+
+
+def _check_carry(cfg, state, acc, B: int, W: int, dev) -> list:
+    """The carry's leaves, each checked to be contiguous, on ``dev``, of
+    the plain version's dtype and shape, and no two sharing memory (the
+    kernel writes them in place)."""
+    N, E, P = cfg.n_lines, _ol.N_EXPERTS, cfg.prefetch_buf
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    want = ([(i32, (B, N)), (b8, (B, N)), (b8, (B, N)), (i32, (B, N)),
+             (i32, (B, N)), (f32, (B, E)), (i32, (B, E, cfg.pred_cap)),
+             (i32, (B, E)), (i32, (B, E)), (i32, (B, 1)), (i32, (B, 1)),
+             (i32, (B, P)), (b8, (B, P))] + [(i32, (B,))] * 6
+            + [(torch.int64, (B, 2))] + [(i32, (B,))] * 6
+            + [(i32, (B, E))] + [(i32, (B, W))] * 7
+            + [(i32, (B, W, E)), (f32, (B, W, E))])
+    leaves = carry_leaves(state, acc)
+    for i, (x, (dt, shape)) in enumerate(zip(leaves, want)):
+        if (x.dtype != dt or tuple(x.shape) != shape or x.device != dev
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"carry leaf {i} must be a contiguous {dt} {list(shape)} "
+                f"tensor on {dev}, got {x.dtype} {list(x.shape)} on "
+                f"{x.device}")
+    if len({x.data_ptr() for x in leaves}) != len(leaves):
+        raise ValueError("carry leaves must not share memory: the kernel "
+                         "updates each in place")
+    return leaves
+
+
+def masked_cache_scan_plain(cfg, hyper, state, acc, pages, writes, win, *,
+                            n_windows: int):
+    """The plain version of the masked mode on any device: returns the
+    new ``(state, acc)`` (``cache_scan_ref(masked=True)``)."""
+    _check_rows(pages, writes, win)
+    return cache_scan_ref(
+        state, acc, pages, writes, win, hyper,
+        epoch_width=cfg.epoch_width, pred_cap=cfg.pred_cap,
+        prefetch=cfg.prefetch, prefetch_width=cfg.prefetch_width,
+        n_windows=n_windows, masked=True)
+
+
+def masked_cache_scan_cuda(cfg, hyper, state, acc, pages, writes, win, *,
+                           n_windows: int, cluster=None, smem_state=None,
+                           pw=None, check_pages: bool = True):
+    """Launch the kernel's masked mode on ``[B, L]`` CUDA rows: each row
+    resumes from ``(state, acc)`` (a ``StoreState`` and ``Accum`` with a
+    leading row axis, every leaf contiguous on the card), which the kernel
+    updates in place; returns them. ``cluster`` and ``smem_state=False``
+    force the plan, as in :func:`cache_scan_plan`. A caller that keeps the
+    launches queued (the chunked replay) passes ``hyper`` as ``[B]``
+    tensors on the card with their ``pw`` pow table there, and
+    ``check_pages=False`` once it has checked the pages on the host: each
+    of these would otherwise copy between host and card, which waits for
+    the launches before it."""
+    _check_rows(pages, writes, win, check_pages=check_pages)
+    dev = pages.device
+    if dev.type != "cuda":
+        raise ValueError(f"masked_cache_scan_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    B, L = pages.shape
+    N, W = cfg.n_lines, n_windows
+    ew = cfg.epoch_width
+    ring = min(cfg.pred_cap, ew)
+    if min(N, ew, cfg.pred_cap, B) < 1:
+        raise ValueError("n_lines, epoch_width, pred_cap and the row count "
+                         "must be positive")
+    leaves = _check_carry(cfg, state, acc, B, W, dev)
+    if L == 0:
+        return state, acc
+    lib = _library()
+    plan = cache_scan_plan(cfg, W, B, cluster=cluster, smem_state=smem_state)
+    i32 = torch.int32
+    pages = pages.to(i32).contiguous()
+    writes = writes.to(i32).contiguous()
+    win = win.to(i32).contiguous()
+    alpha, beta, thr, pol = per_row(hyper, B, dev)
+    if pw is None:
+        pw = _ol.pow_table(beta, ew).to(dev)
+    pw = pw.contiguous()
+    scratch = torch.empty(0 if plan.smem_state else B * -(-N // 32),
+                          dtype=i32, device=dev)
+    table = (ctypes.c_void_p * len(leaves))(*(x.data_ptr() for x in leaves))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [x.data_ptr() for x in (pages, writes, win, alpha, thr, pol, pw)]
+    err = lib.cache_scan_launch(
+        *ptrs, None, scratch.data_ptr(), *([None] * 6), B, L, N, ew, ring,
+        int(cfg.prefetch), cfg.prefetch_width, cfg.prefetch_buf, W, plan.K,
+        int(plan.smem_state), plan.cluster, plan.threads, table,
+        cfg.pred_cap, stream)
+    if err != 0:
+        raise RuntimeError("cache_scan kernel launch failed: "
+                           + lib.cache_scan_error_string(err).decode())
+    _LAUNCHES[0] += 1
+    return state, acc
+
+
+def masked_cache_scan(cfg, hyper, state, acc, pages, writes, win, *,
+                      n_windows: int, **launch):
+    """The chunked replay's engine over ``[B, L]`` rows from the carried
+    ``(state, acc)``: the plain version for CPU tensors (returns new
+    tensors), the kernel for CUDA tensors (updates the carry in place and
+    returns it; ``launch`` goes to :func:`masked_cache_scan_cuda`)."""
+    dev = pages.device
+    if dev.type == "cpu":
+        return masked_cache_scan_plain(cfg, hyper, state, acc, pages, writes,
+                                       win, n_windows=n_windows)
+    if dev.type != "cuda":
+        raise ValueError(f"no cache-scan path for device {dev}")
+    return masked_cache_scan_cuda(cfg, hyper, state, acc, pages, writes, win,
+                                  n_windows=n_windows, **launch)

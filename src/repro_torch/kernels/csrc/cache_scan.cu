@@ -1,6 +1,7 @@
 // Tier-1 cache scan for Hopper (sm_90a): the whole request loop of one
 // shard row per thread block (or per cluster of blocks), from the cold
-// init_store state.
+// init_store state (one-shot mode) or from a carried state that it updates
+// in place (the chunked replay's masked mode).
 //
 // Replaces the Pallas TPU kernel repro/kernels/cache_scan.py:
 // cache_scan_kernel (body _cache_scan_body) and computes exactly what the
@@ -54,6 +55,18 @@
 //   back through distributed shared memory. The first-index argmax over all
 //   lines is the minimum of the shares' minima, so every cluster size gives
 //   the same victims.
+//
+// Masked mode (kMasked, selected by the launch's carry argument): each row
+// starts from its carried StoreState and accumulators -- the plain
+// version's tensors, read and written in place -- and a position whose
+// window id is W or more is a pad that changes nothing. Time is the count
+// of real requests: ts stamps are the carried t plus the request's rank
+// among the real ones, the epoch counter starts at ew - (t mod ew), and the
+// key warp splits the carried key once per real request, finding them with
+// a ballot over each 32 window ids; the walker takes the draw key of its
+// step's rank. A run of pads is one walker iteration. At the end the
+// per-line state, learner, rings, prefetcher, t, key and counters go back
+// to the carry.
 //
 // Float arithmetic: the weight update is spelled with explicit roundings
 // (__fadd_rn / __fmul_rn / __fdiv_rn, and __fmaf_rn exactly where the
@@ -261,6 +274,39 @@ __device__ __forceinline__ void st_volatile(int* p, int v) {
   *reinterpret_cast<volatile int*>(p) = v;
 }
 
+// A row's carried state and accumulators (masked mode): the plain
+// version's StoreState and Accum leaves, each contiguous with a leading
+// row axis; bool leaves are bytes. Order of the host's pointer table.
+struct Carry {
+  int* tags;               // [B, N]
+  unsigned char* valid;    // [B, N]
+  unsigned char* dirty;    // [B, N]
+  int* freq;               // [B, N]
+  int* ts;                 // [B, N]
+  float* weights;          // [B, E]
+  int* pred;               // [B, E, pred_cap]
+  int* pred_n;             // [B, E]
+  int* mispred;            // [B, E]
+  int* epoch_misses;       // [B, 1]
+  int* chosen;             // [B, 1]
+  int* ptags;              // [B, pbuf]
+  unsigned char* pvalid;   // [B, pbuf]
+  int* last_miss;          // [B]
+  int* stride;
+  int* conf;
+  int* issued;
+  int* useful;
+  int* t;                  // [B]
+  long long* key;          // [B, 2] (uint32 words)
+  int* scal[6];            // hits .. evictions, [B] each
+  int* expert_use;         // [B, E]
+  int* win[7];             // win_requests .. win_evictions, [B, W] each
+  int* win_expert_use;     // [B, W, E]
+  float* win_weights;      // [B, W, E]
+  int pred_cap;
+};
+constexpr int kCarryPtrs = 36;
+
 struct Args {
   const int* pages;
   const int* writes;
@@ -280,6 +326,7 @@ struct Args {
   int* weu_out;    // [B, W, E]
   float* ww_out;   // [B, W, E]
   float* fw_out;   // [B, E]
+  Carry c;         // masked mode only
   int L, N, ew, ring, prefetch, pwidth, pbuf, W, K;
 };
 
@@ -439,6 +486,18 @@ struct Learner {
     fixed = false;
   }
 
+  // The carried learner of a row (masked mode).
+  __device__ __forceinline__ void load(const Carry& c, int row) {
+    for (int e = 0; e < kExperts; ++e) {
+      w[e] = c.weights[row * kExperts + e];
+      predn[e] = c.pred_n[row * kExperts + e];
+      mispred[e] = c.mispred[row * kExperts + e];
+    }
+    em = c.epoch_misses[row];
+    chosen = choose(w);
+    fixed = false;
+  }
+
   // WeightAdjust, spelled as the plain version rounds it. At a boundary
   // with no miss in its epoch, every loss is 0, beta^0 = 1, and the
   // update is w / ((w0 + w1) + w2): nothing changes once that sum is 1.
@@ -475,7 +534,7 @@ struct Learner {
   }
 };
 
-template <bool kSmemState>
+template <bool kSmemState, bool kMasked>
 __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay(a.N, a.K, a.ring, a.pwidth, a.pbuf, a.W, a.ew,
@@ -578,10 +637,11 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
     freq = reinterpret_cast<int*>(smem + lay.freq);
     dirty = reinterpret_cast<uint32_t*>(smem + lay.dirty);
   } else {
+    // In masked mode the carried lines are the scratch: updated in place.
     const size_t rn = static_cast<size_t>(row) * N;
-    tags = a.g_tags + rn;
-    ts = a.g_ts + rn;
-    freq = a.g_freq + rn;
+    tags = (kMasked ? a.c.tags : a.g_tags) + rn;
+    ts = (kMasked ? a.c.ts : a.g_ts) + rn;
+    freq = (kMasked ? a.c.freq : a.g_freq) + rn;
     dirty = a.g_dirty + static_cast<size_t>(row) * nw;
   }
   const int key_warp = nt / 32 - 1;
@@ -591,13 +651,44 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
                 a.win + rl, tid - 32, gt - 32, warp, lane, gt, L, K, N, C,
                 hs, hshift, a.pwidth, need_lru, need_lfu, need_rnd};
 
-  // Cold start.
-  for (int l = tid; l < N; l += nt) { tags[l] = -1; ts[l] = 0; freq[l] = 0; }
-  for (int i = tid; i < nw; i += nt) dirty[i] = 0u;
-  for (int i = tid; i < kExperts * a.ring; i += nt) s_pred[i] = -1;
-  for (int i = tid; i < a.pbuf; i += nt) { s_ptags[i] = -1; s_pvalid[i] = 0; }
-  for (int i = tid; i < 7 * W; i += nt) s_winc[i] = 0;
-  for (int i = tid; i < kExperts * W; i += nt) { s_weu[i] = 0; s_ww[i] = 0.f; }
+  const size_t rn = static_cast<size_t>(row) * N;
+  if (kMasked) {
+    // The carried state.
+    const Carry& c = a.c;
+    if (kSmemState)
+      for (int l = tid; l < N; l += nt) {
+        tags[l] = c.tags[rn + l];
+        ts[l] = c.ts[rn + l];
+        freq[l] = c.freq[rn + l];
+      }
+    for (int i = tid; i < nw; i += nt) {
+      uint32_t bits = 0u;
+      for (int j = 0; j < 32 && 32 * i + j < N; ++j)
+        bits |= (c.dirty[rn + 32 * i + j] ? 1u : 0u) << j;
+      dirty[i] = bits;
+    }
+    for (int i = tid; i < kExperts * a.ring; i += nt)
+      s_pred[i] = c.pred[(static_cast<size_t>(row) * kExperts + i / a.ring)
+                         * c.pred_cap + i % a.ring];
+    for (int i = tid; i < a.pbuf; i += nt) {
+      s_ptags[i] = c.ptags[row * a.pbuf + i];
+      s_pvalid[i] = c.pvalid[row * a.pbuf + i];
+    }
+    for (int i = tid; i < 7 * W; i += nt)
+      s_winc[i] = c.win[i / W][static_cast<size_t>(row) * W + i % W];
+    for (int i = tid; i < kExperts * W; i += nt) {
+      s_weu[i] = c.win_expert_use[static_cast<size_t>(row) * kExperts * W + i];
+      s_ww[i] = c.win_weights[static_cast<size_t>(row) * kExperts * W + i];
+    }
+  } else {
+    // Cold start.
+    for (int l = tid; l < N; l += nt) { tags[l] = -1; ts[l] = 0; freq[l] = 0; }
+    for (int i = tid; i < nw; i += nt) dirty[i] = 0u;
+    for (int i = tid; i < kExperts * a.ring; i += nt) s_pred[i] = -1;
+    for (int i = tid; i < a.pbuf; i += nt) { s_ptags[i] = -1; s_pvalid[i] = 0; }
+    for (int i = tid; i < 7 * W; i += nt) s_winc[i] = 0;
+    for (int i = tid; i < kExperts * W; i += nt) { s_weu[i] = 0; s_ww[i] = 0.f; }
+  }
   for (int i = tid; i <= a.ew; i += nt) s_pw[i] = a.pw[row * (a.ew + 1) + i];
   for (int i = tid; i < hs; i += nt) { s_hkey[i] = -1; s_hval[i] = -1; }
   if (tid == 0) {
@@ -608,7 +699,37 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
 
   if (warp == key_warp) {
     // --- the key chain: the draw key of every step, ahead of the walker ---
-    if (need_rnd) {
+    if (kMasked) {
+      // One split per real request; rank r's draw key into ring slot
+      // r mod 2K, no more than 2K ranks past the walker's window start.
+      uint32_t k0 = static_cast<uint32_t>(a.c.key[2 * row]);
+      uint32_t k1 = static_cast<uint32_t>(a.c.key[2 * row + 1]);
+      const int kr = 2 * K;
+      int r = 0;
+      for (int base = 0; base < L; base += 32) {
+        const int p = base + lane;
+        unsigned real = __ballot_sync(kFull, p < L && a.win[rl + p] < W);
+        for (; real; real &= real - 1u, ++r) {
+          if (need_rnd)
+            while (r >= ld_volatile(&s_misc[kWalkT0]) + kr) __nanosleep(64);
+          uint32_t a0 = 0u, a1 = 0u, b0 = 0u, b1 = 1u;
+          threefry2x32(k0, k1, a0, a1);
+          threefry2x32(k0, k1, b0, b1);
+          k0 = a0;
+          k1 = a1;
+          if (need_rnd && lane == 0) {
+            s_dk[2 * (r % kr)] = b0;
+            s_dk[2 * (r % kr) + 1] = b1;
+            __threadfence_block();
+            st_volatile(&s_misc[kKeyDone], r + 1);
+          }
+        }
+      }
+      if (lane == 0) {
+        a.c.key[2 * row] = k0;
+        a.c.key[2 * row + 1] = k1;
+      }
+    } else if (need_rnd) {
       uint32_t k0 = static_cast<uint32_t>(a.keys[2 * row]);
       uint32_t k1 = static_cast<uint32_t>(a.keys[2 * row + 1]);
       const int kr = 2 * K;
@@ -645,12 +766,35 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
     const int workers = nt / 32 - 2;
     const bool l0 = lane == 0;
     Learner ol;
-    ol.init();
     int nvalid = 0, seq = 0;
-    int epoch_left = a.ew;  // steps to the next epoch boundary, inclusive
-    int last_miss = -1, stride = 0, conf = 0, issued = 0;
+    int last_miss = -1, stride = 0, conf = 0, issued = 0, useful = 0;
+    int last_chosen = 0;  // the expert of the last eviction (masked mode)
     int tot[6] = {0, 0, 0, 0, 0, 0};
     int eu[kExperts] = {0, 0, 0};
+    // t of the step at position k: the position in one-shot mode, the
+    // carried t plus the real requests before it in masked mode.
+    int t_base = 0;
+    if (kMasked) {
+      const Carry& c = a.c;
+      ol.load(c, row);
+      for (int l = lane; l < N; l += 32) nvalid += c.valid[rn + l] ? 1 : 0;
+      for (int off = 16; off > 0; off >>= 1)
+        nvalid += __shfl_xor_sync(kFull, nvalid, off);
+      last_miss = c.last_miss[row];
+      stride = c.stride[row];
+      conf = c.conf[row];
+      issued = c.issued[row];
+      useful = c.useful[row];
+      last_chosen = c.chosen[row];
+      t_base = c.t[row];
+      for (int i = 0; i < 6; ++i) tot[i] = c.scal[i][row];
+      for (int e = 0; e < kExperts; ++e) eu[e] = c.expert_use[row * kExperts + e];
+    } else {
+      ol.init();
+    }
+    int tcur = t_base;
+    // Steps to the next epoch boundary, inclusive.
+    int epoch_left = a.ew - ((t_base % a.ew) + a.ew) % a.ew;
     // Window counters accumulate over a run of steps in one window and are
     // added to shared memory when the window id changes.
     int run_wi = -1;
@@ -660,7 +804,7 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
       const int kw = min(K, L - t0);
       const int* rp = s_req + ((t0 / K) & 1) * 3 * K;
       if (l0) {
-        st_volatile(&s_misc[kWalkT0], t0);
+        st_volatile(&s_misc[kWalkT0], tcur - t_base);
         s_misc[kCmd] = kCmdPass;
         s_misc[kT0] = t0;
         s_misc[kNv] = nvalid;
@@ -682,6 +826,14 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
             wij = rp[2 * K + j];
             hj = s_hit[j];
           }
+          if (kMasked) {
+            // A run of pads from step k on: skipped, nothing moves.
+            const unsigned real = __ballot_sync(kFull, !(j < kw && wij >= W));
+            if (!(real & 1u)) {
+              k += real ? __ffs(real) - 1 : 32;
+              continue;
+            }
+          }
           const bool hitj = j < kw && hj >= 0 && tags[hj] == pj;
           const int wi0 = __shfl_sync(kFull, wij, 0);
           const unsigned stop = __ballot_sync(kFull, !(hitj && wij == wi0));
@@ -689,7 +841,7 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
           if (n > 0) {
             if (lane < n) {
               atomicAdd(&freq[hj], 1);
-              atomicMax(&ts[hj], t0 + j);
+              atomicMax(&ts[hj], tcur + lane);
               if (wrj) atomicOr(&dirty[hj >> 5], 1u << (hj & 31));
             }
             tot[0] += n;
@@ -713,13 +865,14 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
             }
             epoch_left -= m;
             k += n;
+            tcur += n;
             __syncwarp();
             continue;
           }
         }
 
         // --- step k misses: the serial step ----------------------------
-        const int t = t0 + k;
+        const int t = tcur;
         const int page = rp[k];
         const bool is_w = rp[K + k] != 0;
         const int wi = rp[2 * K + k];
@@ -758,17 +911,19 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
               s_pvalid[b] = 0;
             }
           promoted = __any_sync(kFull, any);
+          useful += promoted ? 1 : 0;
         }
         int slot;
         if (!evict) {
           slot = nvalid;
           nvalid += 1;
         } else {
+          const int r = t - t_base;  // the step's rank: its split
           if (need_rnd) {
-            while (ld_volatile(&s_misc[kKeyDone]) <= t) {}
+            while (ld_volatile(&s_misc[kKeyDone]) <= r) {}
             __threadfence_block();
           }
-          const int di = 2 * (t % (2 * K));
+          const int di = 2 * (r % (2 * K));
           const uint32_t vk0 = s_dk[di], vk1 = s_dk[di + 1];
           if (C > 1 && need_rnd) {
             seq += 1;
@@ -805,6 +960,7 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
           for (int e = 0; e < kExperts; ++e)
             prop[e] = static_cast<int>(kk[e] & 0xffffffffull);
           slot = chosen == 0 ? prop[0] : (chosen == 1 ? prop[1] : prop[2]);
+          last_chosen = chosen;
           wb = (dirty[slot >> 5] >> (slot & 31)) & 1u;
           // Every computed proposal enters its ring; a fixed policy
           // computes only its own (the rings are not observable there).
@@ -895,6 +1051,7 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
           for (int e = 0; e < kExperts; ++e) run_eu[e] += evict && chosen == e;
         }
         k += 1;
+        tcur += 1;
       }
     }
     flush_run(run_wi, run, run_eu, ol.w, s_winc, s_weu, s_ww, W, l0);
@@ -906,7 +1063,24 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
       fence_cluster();
       st_flag(rc, seq + 1);
     }
-    if (l0) {
+    if (l0 && kMasked) {
+      const Carry& c = a.c;
+      for (int i = 0; i < 6; ++i) c.scal[i][row] = tot[i];
+      for (int e = 0; e < kExperts; ++e) {
+        c.expert_use[row * kExperts + e] = eu[e];
+        c.weights[row * kExperts + e] = ol.w[e];
+        c.pred_n[row * kExperts + e] = ol.predn[e];
+        c.mispred[row * kExperts + e] = ol.mispred[e];
+      }
+      c.epoch_misses[row] = ol.em;
+      c.chosen[row] = last_chosen;
+      c.last_miss[row] = last_miss;
+      c.stride[row] = stride;
+      c.conf[row] = conf;
+      c.issued[row] = issued;
+      c.useful[row] = useful;
+      c.t[row] = tcur;
+    } else if (l0) {
       for (int i = 0; i < 6; ++i) a.scal_out[row * 6 + i] = tot[i];
       for (int e = 0; e < kExperts; ++e) {
         a.eu_out[row * kExperts + e] = eu[e];
@@ -917,17 +1091,44 @@ __global__ void __launch_bounds__(512, 1) cache_scan_kernel(const Args a) {
 
   // --- outputs -------------------------------------------------------------
   __syncthreads();
-  for (int i = tid; i < 7 * W; i += nt) a.winc_out[row * 7 * W + i] = s_winc[i];
-  for (int i = tid; i < kExperts * W; i += nt) {
-    a.weu_out[row * kExperts * W + i] = s_weu[i];
-    a.ww_out[row * kExperts * W + i] = s_ww[i];
+  if (kMasked) {
+    // Everything back to the carry.
+    const Carry& c = a.c;
+    for (int i = tid; i < 7 * W; i += nt)
+      c.win[i / W][static_cast<size_t>(row) * W + i % W] = s_winc[i];
+    for (int i = tid; i < kExperts * W; i += nt) {
+      c.win_expert_use[static_cast<size_t>(row) * kExperts * W + i] = s_weu[i];
+      c.win_weights[static_cast<size_t>(row) * kExperts * W + i] = s_ww[i];
+    }
+    for (int l = tid; l < N; l += nt) {
+      if (kSmemState) {
+        c.tags[rn + l] = tags[l];
+        c.ts[rn + l] = ts[l];
+        c.freq[rn + l] = freq[l];
+      }
+      c.valid[rn + l] = tags[l] >= 0;
+      c.dirty[rn + l] = (dirty[l >> 5] >> (l & 31)) & 1u;
+    }
+    for (int i = tid; i < kExperts * a.ring; i += nt)
+      c.pred[(static_cast<size_t>(row) * kExperts + i / a.ring) * c.pred_cap
+             + i % a.ring] = s_pred[i];
+    for (int i = tid; i < a.pbuf; i += nt) {
+      c.ptags[row * a.pbuf + i] = s_ptags[i];
+      c.pvalid[row * a.pbuf + i] = s_pvalid[i] != 0;
+    }
+  } else {
+    for (int i = tid; i < 7 * W; i += nt) a.winc_out[row * 7 * W + i] = s_winc[i];
+    for (int i = tid; i < kExperts * W; i += nt) {
+      a.weu_out[row * kExperts * W + i] = s_weu[i];
+      a.ww_out[row * kExperts * W + i] = s_ww[i];
+    }
   }
   if (C > 1) cluster_sync();
 }
 
-template <bool kSmemState>
+template <bool kSmemState, bool kMasked>
 cudaError_t prepare(size_t smem) {
-  auto kern = cache_scan_kernel<kSmemState>;
+  auto kern = cache_scan_kernel<kSmemState, kMasked>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -937,7 +1138,6 @@ cudaError_t prepare(size_t smem) {
   return cudaSuccess;
 }
 
-template <bool kSmemState>
 cudaLaunchConfig_t config(cudaLaunchAttribute* attr, int B, int threads,
                           size_t smem, int cluster, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
@@ -954,11 +1154,12 @@ cudaLaunchConfig_t config(cudaLaunchAttribute* attr, int B, int threads,
   return cfg;
 }
 
-// A failed query returns its error code, negated.
+// A failed query returns its error code, negated. Both modes take the
+// same registers and shared memory; the one-shot kernel answers for both.
 template <bool kSmemState>
 int pick_cluster(int B, int N, int threads, size_t smem) {
   if (N < 4096) return 1;  // the draws of a small cache outrun a handshake
-  cudaError_t e = prepare<kSmemState>(smem);
+  cudaError_t e = prepare<kSmemState, false>(smem);
   int dev = 0, sms = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -966,26 +1167,25 @@ int pick_cluster(int B, int N, int threads, size_t smem) {
   for (int c = kMaxCluster; c > 1 && e == cudaSuccess; c >>= 1) {
     if (B * c > sms) continue;
     cudaLaunchAttribute attr[1];
-    cudaLaunchConfig_t cfg = config<kSmemState>(attr, B, threads, smem, c,
-                                                nullptr);
+    cudaLaunchConfig_t cfg = config(attr, B, threads, smem, c, nullptr);
     int n = 0;
-    e = cudaOccupancyMaxActiveClusters(&n, cache_scan_kernel<kSmemState>,
-                                       &cfg);
+    e = cudaOccupancyMaxActiveClusters(
+        &n, cache_scan_kernel<kSmemState, false>, &cfg);
     if (e == cudaSuccess && n >= B) return c;
   }
   return e == cudaSuccess ? 1 : -static_cast<int>(e);
 }
 
-template <bool kSmemState>
+template <bool kSmemState, bool kMasked>
 int launch(const Args& a, int B, int threads, int cluster,
            cudaStream_t stream) {
   const Layout lay(a.N, a.K, a.ring, a.pwidth, a.pbuf, a.W, a.ew, kSmemState);
-  cudaError_t e = prepare<kSmemState>(lay.total);
+  cudaError_t e = prepare<kSmemState, kMasked>(lay.total);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = config<kSmemState>(attr, B, threads, lay.total,
-                                              cluster, stream);
-  e = cudaLaunchKernelEx(&cfg, cache_scan_kernel<kSmemState>, a);
+  cudaLaunchConfig_t cfg = config(attr, B, threads, lay.total, cluster,
+                                  stream);
+  e = cudaLaunchKernelEx(&cfg, cache_scan_kernel<kSmemState, kMasked>, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1018,28 +1218,43 @@ const char* cache_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches B rows (clusters of `cluster` blocks each) on `stream`;
-// `scratch` holds the device-scratch layout's state (3 B N + B ceil(N /
-// 32) ints; unused with `smem_state`). Returns the launch's error code.
+// Launches B rows (clusters of `cluster` blocks each) on `stream`.
+// One-shot mode (`carry` null): every row from the cold state, counters
+// into scal / eu / winc / weu / ww / fw; `scratch` holds the
+// device-scratch layout's state (3 B N + B ceil(N / 32) ints; unused with
+// `smem_state`). Masked mode: `carry` is a table of kCarryPtrs device
+// pointers (the Carry struct's order), updated in place, `pred_cap` the
+// width of its prediction rings; `scratch` holds only the dirty bits (B
+// ceil(N / 32) ints) and the one-shot outputs are unused. Returns the
+// launch's error code.
 int cache_scan_launch(
     const int* pages, const int* writes, const int* win, const float* alpha,
     const float* thr, const int* pol, const float* pw, const int* keys,
     int* scratch, int* scal, int* eu, int* winc, int* weu, float* ww,
     float* fw, int B, int L, int N, int ew, int ring, int prefetch,
     int pwidth, int pbuf, int W, int K, int smem_state, int cluster,
-    int threads, void* stream) {
+    int threads, void* const* carry, int pred_cap, void* stream) {
   if (cluster < 1 || cluster > kMaxCluster || threads < 96 || threads > 512
-      || threads % 32 || K < 1)
+      || threads % 32 || K < 1 || (carry && pred_cap < ring))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bn = static_cast<size_t>(B) * N;
+  const size_t bn = carry ? 0 : static_cast<size_t>(B) * N;
   Args a{pages, writes, win, alpha, thr, pol, pw, keys,
          scratch, scratch + bn, scratch + 2 * bn,
          reinterpret_cast<uint32_t*>(scratch + 3 * bn),
-         scal, eu, winc, weu, ww, fw,
+         scal, eu, winc, weu, ww, fw, Carry{},
          L, N, ew, ring, prefetch, pwidth, pbuf, W, K};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return smem_state ? launch<true>(a, B, threads, cluster, st)
-                    : launch<false>(a, B, threads, cluster, st);
+  if (!carry)
+    return smem_state ? launch<true, false>(a, B, threads, cluster, st)
+                      : launch<false, false>(a, B, threads, cluster, st);
+  static_assert(sizeof(Carry) == kCarryPtrs * sizeof(void*) + sizeof(void*),
+                "the pointer table fills Carry");
+  Carry& c = a.c;
+  void** dst = reinterpret_cast<void**>(&c);
+  for (int i = 0; i < kCarryPtrs; ++i) dst[i] = carry[i];
+  c.pred_cap = pred_cap;
+  return smem_state ? launch<true, true>(a, B, threads, cluster, st)
+                    : launch<false, true>(a, B, threads, cluster, st);
 }
 
 }  // extern "C"

@@ -461,16 +461,63 @@ def _noise_chunks(keys: torch.Tensor, length: int, n_lines: int):
                                    device=dev), row_of
 
 
+def _noise_step(n_rows: int, n_lines: int) -> int:
+    """Steps per batch of masked-mode draws: :data:`NOISE_CHUNK`, fewer
+    where a ``[n_rows, steps, n_lines]`` batch would pass 2^24 draws."""
+    return max(1, min(NOISE_CHUNK, (1 << 24) // max(n_rows * n_lines, 1)))
+
+
+def _masked_draw_keys(keys: torch.Tensor, real: torch.Tensor):
+    """The masked mode's key chains: row ``b`` splits its key once per
+    real request (``real[b]`` True), in order, so position ``t`` draws
+    with the split of its rank among the row's real requests (a pad takes
+    the next one's and discards it). Returns ``(draw keys [B, L, 2] int64
+    on the host, advanced keys [B, 2])``."""
+    B, L = real.shape
+    n_real = real.sum(1).tolist()
+    chains, finals = zip(*(threefry.split_chain(k, n) for k, n in
+                           zip(keys.cpu().tolist(), n_real)))
+    vkeys = torch.zeros(B, max(max(n_real), 1), 2, dtype=torch.int64)
+    for b, chain in enumerate(chains):
+        if chain:
+            vkeys[b, :len(chain)] = torch.tensor(chain, dtype=torch.int64)
+    rank = (real.cumsum(1) - real.to(torch.int64)).cpu()
+    rank = rank.clamp(max=vkeys.shape[1] - 1)
+    per_pos = torch.gather(vkeys, 1, rank[:, :, None].expand(B, L, 2))
+    return per_pos, torch.tensor(finals, dtype=torch.int64)
+
+
+def _select(keep_new: torch.Tensor, new, old):
+    """``new`` where ``keep_new[b]``, else ``old``, leaf by leaf over a
+    state pytree with a leading row axis."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(
+            keep_new.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+    return type(new)(*(_select(keep_new, n, o) for n, o in zip(new, old)))
+
+
 def cache_scan_ref(state0, acc0, pages, writes, win, hyper, *,
                    epoch_width: int, pred_cap: int, prefetch: bool,
-                   prefetch_width: int, n_windows: int):
+                   prefetch_width: int, n_windows: int,
+                   masked: bool = False):
     """Rows of the fused cache engine, plain PyTorch: ``pages``,
     ``writes`` and ``win`` are ``[B, L]``, ``state0`` and ``acc0`` carry a
-    leading row axis. Each row draws the Random expert's uniforms from its
-    own ``state0.key`` chain, :data:`NOISE_CHUNK` steps at a time — the
-    draws of the reference's table and of its in-loop splits alike. The
-    final state's key is ``state0.key`` untouched, as in the reference's
-    table mode. Returns ``(final_state, acc)``.
+    leading row axis and may hold any state. Returns ``(final_state,
+    acc)``, ``acc`` being ``acc0`` plus this run's counters.
+
+    One-shot mode (``masked=False``): every position is a step. Each row
+    draws the Random expert's uniforms from its own ``state0.key`` chain,
+    :data:`NOISE_CHUNK` steps at a time — the draws of the reference's
+    table. The final state's key is ``state0.key`` untouched, as in the
+    reference's table mode.
+
+    Masked mode (``masked=True``, the resumable chunk engine's): a
+    position with ``win >= n_windows`` is a pad and leaves the state
+    untouched — cache lines, learner, prediction ring, prefetcher, ``t``
+    and key — and adds 0 to every counter. Each real request splits the
+    row's carried key once, in order (the reference's in-loop splits), and
+    the final state carries the advanced key. A window the run does not
+    touch keeps its incoming ``win_weights``.
 
     The prediction ring is carried truncated to ``min(pred_cap,
     epoch_width)`` columns: under ``ws`` it is cleared every epoch and
@@ -481,32 +528,62 @@ def cache_scan_ref(state0, acc0, pages, writes, win, hyper, *,
     ols0, cache0 = state0.ols, state0.cache
     B, L = pages.shape
     n_lines = cache0.tags.shape[-1]
+    dev = pages.device
     state = state0._replace(
         ols=ols0._replace(pred=ols0.pred[:, :, :c_eff]),
         cache=_ScanCache(tags=cache0.tags, dirty=cache0.dirty,
                          freq=cache0.freq, ts=cache0.ts,
                          n_valid=cache0.valid.sum(-1, dtype=torch.int32)),
     )
+    if masked:
+        # A position that is a pad on every row changes nothing and counts
+        # nothing: drop it (the chunk buffers' tails are mostly such).
+        keep = (win < n_windows).any(0)
+        if not bool(keep.all()):
+            pages, writes, win = pages[:, keep], writes[:, keep], win[:, keep]
+            L = pages.shape[1]
     if L == 0:
         return state0, acc0
-    pw = _ol.pow_table(hyper.beta, epoch_width).to(pages.device)
+    pw = _ol.pow_table(hyper.beta, epoch_width).to(dev)
     pages = pages.to(torch.int32)
     writes = writes.to(torch.bool)
-    draws = _noise_chunks(state0.key, L, n_lines)
+    if masked:
+        real = win < n_windows
+        vkeys, key_end = _masked_draw_keys(state0.key, real)
+        step, s = _noise_step(B, n_lines), -1
+    else:
+        draws = _noise_chunks(state0.key, L, n_lines)
+        step = NOISE_CHUNK
     outs = {k: [] for k in ("hit", "miss", "prefetch_hit", "tier2_read",
                             "tier2_write", "evict", "chosen")}
     wts = []
     for t in range(L):
-        if t % NOISE_CHUNK == 0:
-            chunk, row_of = next(draws)
-        nrow = chunk[row_of, t % NOISE_CHUNK]
-        state, out = fused_cache_step(
+        if masked:
+            if t - t % step != s:
+                s = t - t % step
+                vk = vkeys[:, s:s + step].to(dev)
+                chunk = threefry.uniform_f32(vk[..., 0], vk[..., 1],
+                                             n_lines, device=dev)
+            nrow = chunk[:, t - s]
+        else:
+            if t % step == 0:
+                chunk, row_of = next(draws)
+            nrow = chunk[row_of, t % step]
+        new, out = fused_cache_step(
             state, pages[:, t], writes[:, t], nrow, hyper,
             epoch_width=epoch_width, pred_cap=pred_cap, prefetch=prefetch,
             prefetch_width=prefetch_width, pw=pw)
+        if masked:
+            ok = real[:, t]
+            new = _select(ok, new, state)
+            out = {k: (v if k == "chosen" else v & ok if v.dtype == torch.bool
+                       else torch.where(ok, v, 0)) for k, v in out.items()}
+        state = new
         for k, v in out.items():
             outs[k].append(v)
         wts.append(state.ols.weights)
+    if masked:
+        state = state._replace(key=key_end.to(dev))
     fc = state.cache
     final = state._replace(
         ols=state.ols._replace(pred=torch.cat(

@@ -30,6 +30,7 @@ __all__ = [
     "threefry2x32",
     "split",
     "key_chain",
+    "split_chain",
     "uniform_f32",
     "cache_scan_noise",
 ]
@@ -80,12 +81,19 @@ def split(key):
 def key_chain(key, length: int) -> list:
     """The draw keys of ``length`` successive ``key, vkey = split(key)``
     steps, on the host: a list of ``(k0, k1)`` int pairs."""
+    return split_chain(key, length)[0]
+
+
+def split_chain(key, length: int) -> tuple:
+    """``(draw_keys, key)``: the draw keys of ``length`` successive
+    ``key, vkey = split(key)`` steps (a list of ``(k0, k1)`` int pairs)
+    and the key they leave, on the host."""
     key = (int(key[0]), int(key[1]))
     out = []
     for _ in range(length):
         key, vkey = split(key)
         out.append(vkey)
-    return out
+    return out, key
 
 
 def uniform_f32(vk0, vk1, n: int, *, device=None) -> torch.Tensor:

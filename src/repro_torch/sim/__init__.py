@@ -7,13 +7,16 @@ a structural store config run as the rows of one cache-scan launch, and
 cache-size axes of LRU grids take the miss-rate-curve route
 (``mrc_tier1_counters`` / ``mrc_curve``: one reuse-distance pass on the
 card for every size at once); the reports of a sweep are solved in one
-batched float64 torch call. The chunked replay (``tenant_mix`` workloads,
-``sweep(stream="auto")`` on streams past 2^20 requests) is not ported yet.
+batched float64 torch call. ``simulate_stream`` / ``stream_tier1_counters``
+replay a workload in bounded-memory chunks, resumable from a
+``StreamCheckpoint``; ``tenant_mix`` workloads go through it and gain
+per-tenant ``TenantReport`` attribution.
 """
 from repro_torch.sim.engine import (  # noqa: F401
     ShardReport,
     SimReport,
     TenantCounters,
+    TenantReport,
     Tier1Counters,
     WindowSeries,
     batched_reports,
@@ -39,6 +42,11 @@ from repro_torch.sim.spec import (  # noqa: F401
     shard_down,
     tier2_outage,
 )
+from repro_torch.sim.stream import (  # noqa: F401
+    StreamCheckpoint,
+    simulate_stream,
+    stream_tier1_counters,
+)
 from repro_torch.sim.sweep import (  # noqa: F401
     SweepResult,
     engine_compile_count,
@@ -54,10 +62,11 @@ __all__ = [
     "FaultSpec", "FaultEvent", "RetryPolicy",
     "shard_down", "device_degrade", "tier2_outage",
     "SimReport", "ShardReport", "Tier1Counters", "WindowSeries",
-    "TenantCounters",
+    "TenantCounters", "TenantReport",
     "simulate", "tier1_counters", "report_from_counters", "batched_reports",
     "sweep", "expand_grid", "SweepResult",
     "engine_compile_count", "reset_engine_compile_count",
     "fluid_compile_count", "reset_fluid_compile_count",
     "mrc_curve", "mrc_tier1_counters", "mrc_unsupported_reason",
+    "simulate_stream", "stream_tier1_counters", "StreamCheckpoint",
 ]

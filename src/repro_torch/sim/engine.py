@@ -45,8 +45,13 @@ The tier-1 stage runs on the ``device`` the caller names (``None`` = the
 card); the report stage is host-side numpy, a copy of the reference's
 scalar report path. :func:`batched_reports` solves many points' fluid
 transients in one float64 torch call on a device
-(:func:`repro_torch.core.queuing.fluid_two_tier_batched`). ``tenant_mix``
-workloads are not ported yet.
+(:func:`repro_torch.core.queuing.fluid_two_tier_batched`).
+
+**Multi-tenant workloads.** ``tenant_mix`` specs (no trace override) go
+through the chunked streaming replay (:func:`repro_torch.sim.stream.
+simulate_stream`), whose composite ``window x tenant`` counters give each
+tenant its :class:`TenantReport`: its windowed miss mix priced at the
+pooled transient solve's residence times.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from time import perf_counter
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.mapping import apply_failover, page_to_shard
 from repro_torch.core.queuing import (
@@ -76,13 +82,9 @@ from repro_torch.storage.tiered_store import (
 )
 
 __all__ = ["Tier1Counters", "TenantCounters", "WindowSeries", "ShardReport",
-           "SimReport", "tier1_counters", "report_from_counters",
-           "batched_reports", "counters_from_stats", "simulate",
-           "fault_owner", "stream_for_spec", "sim_n_pages"]
-
-_CHUNKED_SLICE = ("tenant_mix workloads replay through the chunked "
-                  "streaming path (sim/stream.py), which is not ported "
-                  "yet; it lands with the chunked-replay slice")
+           "TenantReport", "SimReport", "tier1_counters",
+           "report_from_counters", "batched_reports", "counters_from_stats",
+           "simulate", "fault_owner", "stream_for_spec", "sim_n_pages"]
 
 class Tier1Counters(NamedTuple):
     """Per-shard int64 counter arrays measured by the tier-1 engine.
@@ -115,13 +117,27 @@ class Tier1Counters(NamedTuple):
         return self.win_requests.shape[-1]
 
 
+class TenantCounters(NamedTuple):
+    """Per-tenant windowed engine counters of a ``tenant_mix`` workload,
+    pooled across shards (shapes ``[n_tenants, n_windows]``; sums over the
+    tenant axis equal the pooled :class:`Tier1Counters` window series
+    exactly). Produced by the streaming replay
+    (:func:`repro_torch.sim.stream.stream_tier1_counters`), which resolves
+    the engine's windowed counters over composite ``window x tenant`` ids —
+    attribution costs no extra launch."""
 
-class TenantCounters:
-    """Per-tenant windowed counters of a ``tenant_mix`` workload. They come
-    from the chunked streaming replay, which is not ported yet."""
+    names: tuple            # tenant names, declaration order
+    win_requests: np.ndarray
+    win_hits: np.ndarray
+    win_misses: np.ndarray
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_CHUNKED_SLICE)
+    @property
+    def n_tenants(self) -> int:
+        return self.win_requests.shape[0]
+
+    @property
+    def n_windows(self) -> int:
+        return self.win_requests.shape[-1]
 
 
 class WindowSeries(NamedTuple):
@@ -195,6 +211,33 @@ class ShardReport:
 
 
 @dataclasses.dataclass(frozen=True)
+class TenantReport:
+    """One tenant of a ``tenant_mix`` workload: measured windowed counters
+    plus the latency the tenant observes riding the *pooled* queues.
+
+    Tenants share the tier-1/tier-2 service processes, so each window's
+    residence times come from the pooled transient solve; what is per
+    tenant is the miss mix — ``response_s[w] = w1[w] + p12[w] * w2[w]``
+    with the *tenant's* measured per-window miss fraction."""
+
+    tenant: int              # index in the spec's declaration order
+    name: str
+    requests: int
+    hits: int
+    misses: int
+    miss_rate: float         # whole-stream: misses / requests
+    win_requests: np.ndarray  # [n_windows] pooled across shards
+    win_misses: np.ndarray    # [n_windows]
+    lam: np.ndarray           # [n_windows] measured tenant arrival rate
+    p12: np.ndarray           # [n_windows] tenant miss fraction
+    response_s: np.ndarray    # [n_windows] expected response this tenant sees
+    mean_response_s: float    # request-weighted mean of response_s
+
+    def to_dict(self) -> dict:
+        return _plain(dataclasses.asdict(self))
+
+
+@dataclasses.dataclass(frozen=True)
 class SimReport:
     """Aggregate + per-shard results for one :class:`SimSpec` scenario."""
 
@@ -238,8 +281,8 @@ class SimReport:
     # First window of the pooled solve's trailing retry-storm run (see
     # ShardReport.metastable_onset). None = ends healthy / no retry policy.
     metastable_onset: Optional[int] = None
-    # Per-tenant attribution of tenant_mix workloads: always empty here
-    # (the chunked-replay path that fills it is not ported yet).
+    # Per-tenant attribution (tenant_mix streaming replays); empty for
+    # single-tenant specs.
     tenants: tuple = ()
 
     def to_dict(self) -> dict:
@@ -368,9 +411,9 @@ def tier1_counters(spec: SimSpec, trace=None, *, engine: str = "fused",
     (:func:`repro_torch.storage.tiered_store.run_distributed`) on ``device``
     (``None`` = the card) and return exact per-shard counters
     (whole-stream and per-window). ``trace`` overrides the generated
-    stream (see :func:`stream_for_spec`)."""
-    if spec.traffic.kind == "tenant_mix" and trace is None:
-        raise NotImplementedError(_CHUNKED_SLICE)
+    stream (see :func:`stream_for_spec`; a ``tenant_mix`` spec is drained
+    in one shot). ``engine`` selects the fused cache-scan engine (default)
+    or the per-step ``"scan"`` engine it is bit-exact against."""
     pages, is_write, times, n_pages, n_windows, window_dt = stream_for_spec(
         spec, trace)
     owner = fault_owner(spec, pages, times, n_pages)
@@ -386,9 +429,11 @@ def tier1_counters(spec: SimSpec, trace=None, *, engine: str = "fused",
 
 def _assemble_counters(corrected_stats, counts, writes) -> Tier1Counters:
     """Build :class:`Tier1Counters` from padding-corrected StreamStats
-    (tensors on any device)."""
+    (tensors on any device, or numpy arrays)."""
     counts = np.asarray(counts, np.int64)
-    s = type(corrected_stats)(*(x.cpu().numpy() for x in corrected_stats))
+    s = type(corrected_stats)(*(
+        x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        for x in corrected_stats))
     return Tier1Counters(
         requests=counts,
         reads=counts - np.asarray(writes, np.int64),
@@ -490,6 +535,7 @@ class _PreparedReport(NamedTuple):
 
     spec: SimSpec
     ctr: Tier1Counters            # cold-refill-corrected counters
+    tenants: Optional[TenantCounters]
     rates: ResolvedRates
     mu1_v: np.ndarray             # [S] equilibrium per-shard rates
     mu2_v: np.ndarray
@@ -539,7 +585,10 @@ class _Equilibrium(NamedTuple):
 
 
 
-def _prepare_report(spec: SimSpec, ctr: Tier1Counters) -> _PreparedReport:
+def _prepare_report(
+    spec: SimSpec, ctr: Tier1Counters,
+    tenants: Optional[TenantCounters] = None,
+) -> _PreparedReport:
     """Counters → queuing-network inputs (the pre-solve half of
     :func:`report_from_counters`)."""
     rates = spec.rates.resolve()
@@ -645,7 +694,7 @@ def _prepare_report(spec: SimSpec, ctr: Tier1Counters) -> _PreparedReport:
     miss_rate = total_miss / total_req if total_req else 0.0
     p12 = spec.p12_override if spec.p12_override is not None else miss_rate
     return _PreparedReport(
-        spec=spec, ctr=ctr, rates=rates,
+        spec=spec, ctr=ctr, tenants=tenants, rates=rates,
         mu1_v=mu1_v, mu2_v=mu2_v, p12_sh=p12_sh, req=req,
         total_req=total_req, total_miss=total_miss, miss_rate=miss_rate,
         p12=p12, duration=duration, n_windows=n_windows, windows=windows,
@@ -768,6 +817,41 @@ def _finish_report(
     )
     t_total = float(mt.t_total)
 
+    # --- per-tenant attribution (tenant_mix streaming replays) ------------
+    tenant_reports: tuple = ()
+    if prep.tenants is not None:
+        tenants = prep.tenants
+        t_reports = []
+        w1_t = np.asarray(transient.w1, float)
+        w2_t = np.asarray(transient.w2, float)
+        for k, name in enumerate(tenants.names):
+            t_req = np.asarray(tenants.win_requests[k], np.int64)
+            t_miss = np.asarray(tenants.win_misses[k], np.int64)
+            t_hits = int(np.asarray(tenants.win_hits[k]).sum())
+            n_req = int(t_req.sum())
+            t_p12 = t_miss / np.maximum(t_req, 1)
+            t_lam = (t_req / duration if duration > 0
+                     else np.zeros_like(t_req, float))
+            t_resp = w1_t + t_p12 * w2_t
+            wsum = float(t_req.sum())
+            t_reports.append(TenantReport(
+                tenant=k,
+                name=str(name),
+                requests=n_req,
+                hits=t_hits,
+                misses=int(t_miss.sum()),
+                miss_rate=float(t_miss.sum() / max(n_req, 1)),
+                win_requests=t_req,
+                win_misses=t_miss,
+                lam=np.asarray(t_lam, float),
+                p12=np.asarray(t_p12, float),
+                response_s=np.asarray(t_resp, float),
+                mean_response_s=(
+                    float((t_resp * t_req).sum() / wsum) if wsum > 0 else 0.0
+                ),
+            ))
+        tenant_reports = tuple(t_reports)
+
     equilibrium = bool(eq.agg_eq) and bool(eq.sh_eq.all())
     return SimReport(
         spec=spec,
@@ -803,11 +887,14 @@ def _finish_report(
         transient=transient,
         saturation_onset=saturation_onset,
         metastable_onset=pooled_meta,
+        tenants=tenant_reports,
     )
 
 
-def report_from_counters(spec: SimSpec, ctr: Tier1Counters,
-                         tenants=None) -> SimReport:
+def report_from_counters(
+    spec: SimSpec, ctr: Tier1Counters,
+    tenants: Optional[TenantCounters] = None,
+) -> SimReport:
     """Solve the queuing network for measured counters (no traffic rerun).
 
     Per-shard service-rate heterogeneity (``RateSpec.mu1_shards`` /
@@ -815,11 +902,13 @@ def report_from_counters(spec: SimSpec, ctr: Tier1Counters,
     own μ1/μ2 and the minimum-time model (eqs. 1–4) uses the per-shard rate
     vectors; the aggregate/pooled queue uses the scalar (mean) rates. All
     per-shard and per-window solves are vectorized numpy calls into
-    :mod:`repro_torch.core.queuing`. ``tenants`` (per-tenant attribution)
-    needs the chunked-replay slice and raises."""
-    if tenants is not None:
-        raise NotImplementedError(_CHUNKED_SLICE)
-    prep = _prepare_report(spec, ctr)
+    :mod:`repro_torch.core.queuing`.
+
+    ``tenants`` (a :class:`TenantCounters`, produced by the streaming
+    replay of a ``tenant_mix`` workload) adds per-tenant
+    :class:`TenantReport` attribution: each tenant's windowed miss mix
+    priced at the pooled transient solve's per-window residence times."""
+    prep = _prepare_report(spec, ctr, tenants)
     # Per-shard transient: measured per-shard rates at per-shard μ.
     sh_tr = transient_two_tier(
         prep.lam_sw, prep.p12_sw, prep.sh_mu1, prep.sh_mu2, **prep.tr_kw,
@@ -861,7 +950,8 @@ def batched_reports(
     items: Sequence, *, solver: str = "batched", _prof: Optional[dict] = None,
     device=None,
 ) -> list[SimReport]:
-    """Reports for many ``(spec, counters)`` points with the fluid
+    """Reports for many ``(spec, counters[, tenant_counters])`` points with
+    the fluid
     transient solves *batched*: compatible points' windowed rates stack
     into one ``[point, shard, window]`` tensor solved by one float64 torch
     window loop on ``device`` (``None`` = the card;
@@ -876,7 +966,7 @@ def batched_reports(
     per-point numpy solver (the reference path; it touches no device).
     Piecewise-mode points (``transient_mode="piecewise"`` or idle streams)
     always take the scalar path. A third item element (per-tenant
-    counters) needs the chunked-replay slice and raises unless it is None.
+    :class:`TenantCounters`, or ``None``) adds tenant attribution.
 
     Batched and scalar solves agree to ~1e-13 on the analytic ``k = 1``
     path (~1e-9 for the ``k > 1`` bisection).
@@ -889,9 +979,9 @@ def batched_reports(
             f"solver must be 'batched' or 'scalar', got {solver!r}")
     preps = []
     for item in items:
-        if len(item) > 2 and item[2] is not None:
-            raise NotImplementedError(_CHUNKED_SLICE)
-        preps.append(_prepare_report(item[0], item[1]))
+        spec, ctr = item[0], item[1]
+        tenants = item[2] if len(item) > 2 else None
+        preps.append(_prepare_report(spec, ctr, tenants))
 
     groups: dict[Optional[tuple], list[int]] = {}
     for i, prep in enumerate(preps):
@@ -987,7 +1077,15 @@ def batched_reports(
 def simulate(spec: SimSpec, trace=None, *, device=None) -> SimReport:
     """The end-to-end model: workload -> distributed tier 1 -> queuing.
     The tier-1 stage runs on ``device`` (``None`` = the card, raising when
-    there is none); ``tenant_mix`` workloads need the chunked-replay slice
-    and raise."""
+    there is none).
+
+    ``tenant_mix`` workloads (no trace override) go through the chunked
+    streaming replay (:func:`repro_torch.sim.stream.simulate_stream`):
+    counters equal to the one-shot engine's (the tenant merge is chunk
+    invariant), and the report gains per-tenant :class:`TenantReport`
+    attribution the one-shot path cannot produce."""
+    if spec.traffic.kind == "tenant_mix" and trace is None:
+        from repro_torch.sim.stream import simulate_stream
+        return simulate_stream(spec, device=device)
     return report_from_counters(
         spec, tier1_counters(spec, trace, device=device))

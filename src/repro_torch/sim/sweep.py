@@ -46,11 +46,15 @@ eligible multi-size groups and falls back to the engine with a logged
 reason otherwise; ``"off"`` disables the path; ``"require"`` raises
 ``ValueError`` if any group cannot be routed.
 
-**Streaming routing** (``stream=`` keyword): the reference serves
-``tenant_mix`` signatures and streams longer than :data:`STREAM_THRESHOLD`
-requests with its chunked replay engine, which is not ported yet: under
-``stream="auto"`` such a signature raises ``NotImplementedError``;
-``stream="off"`` runs it through the megabatch, as the reference does.
+**Streaming routing** (``stream=`` keyword): the megabatch stacks whole
+traces on the card, so a grid point with a multi-million-request stream
+(or a ``tenant_mix`` workload, whose per-tenant attribution only the
+streaming path produces) is served by the chunked replay
+(:mod:`repro_torch.sim.stream`): bounded device memory, at most two
+buffer sets, counters bit-identical to the engine. ``stream="auto"``
+(default) routes ``tenant_mix`` signatures and streams longer than
+:data:`STREAM_THRESHOLD` requests; ``"off"`` forces everything through
+the megabatch.
 
 The sweep runs on one device. The reference's split of the point axis
 over several devices (``shard_map``) and its XLA knobs ``unroll`` and
@@ -76,6 +80,7 @@ from repro_torch.core.traffic import make_stream, make_timed_stream
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cache_scan import cold_keys, fused_cache_scan
 from repro_torch.sim.engine import (
+    TenantCounters,
     Tier1Counters,
     batched_reports,
     counters_from_stats,
@@ -85,11 +90,13 @@ from repro_torch.sim.engine import (
 )
 from repro_torch.sim.mrc import mrc_tier1_counters, mrc_unsupported_reason
 from repro_torch.sim.spec import SimSpec
+from repro_torch.sim.stream import stream_tier1_counters
 from repro_torch.storage.tiered_store import (
     StoreConfig,
     StoreHyper,
     StreamStats,
     _check_engine,
+    _run_rows,
     partition_streams,
     timestamp_window_ids,
 )
@@ -109,8 +116,9 @@ log = logging.getLogger(__name__)
 # Smallest padded stream-length bucket; lengths round up to powers of two so
 # ragged groups land in a handful of shapes instead of one shape per point.
 MIN_BUCKET = 16
-# Streams longer than this belong to the chunked replay under
-# stream="auto" (not ported yet: such a signature raises).
+# Streams longer than this route through the chunked replay under
+# stream="auto": stacking them whole on the card stops paying off before
+# the megabatch's launch sharing does.
 STREAM_THRESHOLD = 1 << 20
 
 # Structural configs launched so far, and the count since the last reset.
@@ -249,23 +257,36 @@ def _route_mrc(
     return counters
 
 
-def _route_stream(unique: Mapping[tuple, SimSpec], stream: str) -> None:
-    """Under ``stream="auto"`` the reference replays ``tenant_mix`` and
-    oversized-stream signatures in chunks; that engine is not ported, so
-    such a signature raises instead of silently taking the megabatch."""
+def _route_stream(
+    unique: Mapping[tuple, SimSpec], stream: str, *, device: torch.device,
+    engine: str = "fused", profile: Optional[dict] = None,
+) -> tuple[dict[tuple, Tier1Counters], dict[tuple, TenantCounters]]:
+    """Serve ``tenant_mix`` and oversized-stream signatures via the chunked
+    replay (:mod:`repro_torch.sim.stream`): bounded device memory, at most
+    two buffer sets, counters bit-identical to the engine. Returns
+    ``({signature: counters}, {signature: tenant_counters})`` for the
+    routed signatures; the caller runs the rest through the megabatch.
+    ``profile`` threads per-chunk sub-timings through to
+    :func:`repro_torch.sim.stream.stream_tier1_counters`."""
+    counters: dict[tuple, Tier1Counters] = {}
+    tenants: dict[tuple, TenantCounters] = {}
     if stream == "off":
-        return
-    for spec in unique.values():
+        return counters, tenants
+    for sig, spec in unique.items():
         mix = spec.traffic.kind == "tenant_mix"
-        if mix or spec.traffic.n_requests > STREAM_THRESHOLD:
-            raise NotImplementedError(
-                "sweep(stream='auto') routes "
-                + ("tenant_mix workloads" if mix else
-                   f"streams over {STREAM_THRESHOLD} requests "
-                   f"({spec.traffic.n_requests})")
-                + " to the chunked replay (sim/stream.py), which is not "
-                "ported yet; it lands with the chunked-replay slice. Pass "
-                "stream='off' to run it through the megabatch")
+        if not (mix or spec.traffic.n_requests > STREAM_THRESHOLD):
+            continue
+        log.info(
+            "sweep: stream route — %s, %d requests (chunked replay)",
+            "tenant_mix" if mix else "oversized stream",
+            spec.traffic.n_requests,
+        )
+        ctr, tc, _ = stream_tier1_counters(spec, engine=engine,
+                                           profile=profile, device=device)
+        counters[sig] = ctr
+        if tc is not None:
+            tenants[sig] = tc
+    return counters, tenants
 
 
 def _bucket_cap(n: int) -> int:
@@ -283,19 +304,26 @@ def _stack_hypers(stores: Sequence[StoreConfig]) -> StoreHyper:
 
 
 def _launch_rows(store: StoreConfig, hyper: StoreHyper, sh_pages, sh_writes,
-                 sh_win, n_windows: int, device: torch.device) -> StreamStats:
+                 sh_win, n_windows: int, device: torch.device,
+                 engine: str = "fused") -> StreamStats:
     """One launch of the cache-scan engine over ``[N, S, L]`` stacked
     points: rows are ``point × shard``, each point's knobs repeated over its
     shards, every row cold with the reference's seed-0 key. Returns
     un-corrected :class:`StreamStats` with a ``[N * S]`` row axis (the
-    kernel's outputs, still in flight on the card)."""
-    key = (store, n_windows)
+    kernel's outputs, still in flight on the card). ``engine="scan"``
+    runs the same rows through the per-step engine instead."""
+    key = (store, n_windows, engine)
     if key not in _ENGINE_KEYS:
         _ENGINE_KEYS.add(key)
         _ENGINE_COMPILES[0] += 1
     N, S, L = sh_pages.shape
     B = N * S
     rows = StoreHyper(*(x.repeat_interleave(S).to(device) for x in hyper))
+    if engine == "scan":
+        return _run_rows(store, sh_pages.reshape(B, L),
+                         sh_writes.reshape(B, L), sh_win.reshape(B, L),
+                         seed=0, hyper=rows, n_windows=n_windows,
+                         device=device, engine=engine)
     out = fused_cache_scan(
         store, rows, cold_keys(0, B, device),
         torch.as_tensor(sh_pages.reshape(B, L), device=device),
@@ -346,7 +374,7 @@ class _PendingBucket:
 
 def _dispatch_group(
     specs: list[SimSpec], sigs: list, *, device: torch.device,
-    _prof: Optional[dict] = None,
+    engine: str = "fused", _prof: Optional[dict] = None,
 ) -> list[_PendingBucket]:
     """Partition, bucket, pad and launch every unique cache signature of
     one batch-key group. Returns pending buckets; the card computes while
@@ -426,7 +454,7 @@ def _dispatch_group(
         )
         stats = _launch_rows(
             store_static, _stack_hypers([m.spec.store for m in group]),
-            sh_pages, sh_writes, sh_win, n_windows, device)
+            sh_pages, sh_writes, sh_win, n_windows, device, engine)
         pending.append(_PendingBucket(
             sigs=[m.sig for m in group],
             counts=[m.counts for m in group],
@@ -477,10 +505,11 @@ def sweep(
     ``ValueError`` when the MRC path cannot serve the grid (incompatible
     with ``batch=False``).
 
-    ``stream``: ``"auto"`` raises ``NotImplementedError`` for a
-    ``tenant_mix`` signature or a stream past :data:`STREAM_THRESHOLD`
-    requests (the reference's chunked replay, not ported yet); ``"off"``
-    runs them through the megabatch.
+    ``stream`` controls routing to the chunked replay (see the module
+    docstring): ``"auto"`` serves ``tenant_mix`` signatures (adding
+    per-tenant attribution to their reports) and streams past
+    :data:`STREAM_THRESHOLD` requests via :mod:`repro_torch.sim.stream`;
+    ``"off"`` forces the megabatch.
 
     ``report`` picks the report-stage solver
     (:func:`repro_torch.sim.engine.batched_reports`): ``"batched"`` stacks
@@ -489,14 +518,18 @@ def sweep(
     point with the numpy loop — ``SimReport`` JSON identical to the
     reference's scalar path; ``"auto"`` follows ``batch``.
 
-    ``engine``: only ``"fused"`` (the cache-scan kernel) is ported;
-    ``"scan"`` raises ``NotImplementedError``.
+    ``engine`` selects the tier-1 request loop
+    (:func:`repro_torch.storage.tiered_store.run_stream`): ``"fused"``
+    (default) is the cache-scan kernel, ``"scan"`` the per-step engine
+    (plain PyTorch on ``device``) it is bit-exact against.
 
     ``profile=True`` attaches a per-stage wall-clock breakdown (seconds)
     to :attr:`SweepResult.profile` under the reference's keys:
     ``stream_gen``, ``engine_dispatch`` = ``engine_dispatch_submit``
     (copies and launches) + ``engine_dispatch_wait`` (the gather, which
-    waits for the card), plus the routed MRC and unbatched paths,
+    waits for the card), plus the routed stream, MRC and unbatched paths
+    (the chunked replay adds its per-chunk ``stream_chunk_host`` /
+    ``stream_chunk_dispatch`` / ``stream_chunk_wait`` timings),
     ``report_solve``, ``assembly`` and ``total``.
 
     The reference's ``unroll`` (a ``lax.scan`` unroll) and ``donate``
@@ -547,19 +580,23 @@ def sweep(
         unique.setdefault(sig, spec)
 
     counters: dict[tuple, Tier1Counters] = {}
+    tenant_ctrs: dict[tuple, TenantCounters] = {}
     t0 = perf_counter()
     if batch:
-        _route_stream(unique, stream)
+        counters, tenant_ctrs = _route_stream(
+            unique, stream, device=device, engine=engine, profile=prof)
     if batch and mrc != "off":
-        counters.update(_route_mrc(unique, mrc, device))
+        counters.update(_route_mrc(
+            {s: sp for s, sp in unique.items() if s not in counters}, mrc,
+            device))
     if prof is not None:
-        # The MRC route generates its streams internally; its whole cost
-        # lands on engine_dispatch.
+        # The routed paths generate their streams internally; their whole
+        # cost lands on engine_dispatch.
         prof["engine_dispatch"] += perf_counter() - t0
     if batch:
         groups: dict[tuple, list[tuple]] = {}
         for sig, spec in unique.items():
-            if sig in counters:  # already served by the MRC path
+            if sig in counters:  # already served by a routed path
                 continue
             groups.setdefault(_batch_key(spec), []).append(sig)
         # Launch everything first, then gather: traffic generation and
@@ -573,7 +610,7 @@ def sweep(
             )
             pending.extend(
                 _dispatch_group([unique[s] for s in sigs], sigs,
-                                device=device, _prof=prof)
+                                device=device, engine=engine, _prof=prof)
             )
         t0 = perf_counter()
         for bucket in pending:
@@ -594,7 +631,8 @@ def sweep(
             prof["engine_dispatch"] += perf_counter() - t0
 
     reports = batched_reports(
-        [(spec, counters[sig]) for spec, sig in zip(specs, sig_of)],
+        [(spec, counters[sig], tenant_ctrs.get(sig))
+         for spec, sig in zip(specs, sig_of)],
         solver=solver, _prof=prof, device=device,
     )
     if prof is not None:

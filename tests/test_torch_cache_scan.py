@@ -150,10 +150,13 @@ def test_cpu_path_launches_no_kernel_and_rejects_bad_input():
     tcs.reset_cache_scan_launch_count()
     cfg = T.StoreConfig(n_lines=8)
     pages, writes = _stream(4, n=50, n_pages=20)
-    T.run_stream(cfg, pages, writes, device="cpu")
+    fused = T.run_stream(cfg, pages, writes, device="cpu")
     assert tcs.cache_scan_launch_count() == 0
-    with pytest.raises(NotImplementedError, match="chunked-replay"):
-        T.run_stream(cfg, pages, writes, device="cpu", engine="scan")
+    # The per-step engine on the CPU: no kernel, the fused engine's stats.
+    scan = T.run_stream(cfg, pages, writes, device="cpu", engine="scan")
+    assert tcs.cache_scan_launch_count() == 0
+    for f, x in zip(fused._fields, fused):
+        assert torch.equal(getattr(scan, f), x), f
     with pytest.raises(ValueError, match="unknown engine"):
         T.run_stream(cfg, pages, writes, device="cpu", engine="pallas")
     with pytest.raises(ValueError, match="non-negative"):

@@ -78,16 +78,20 @@ def test_simulate_end_to_end_small():
 
 
 def test_unported_routes_raise():
-    mix = ttr.tenant_mix(ttr.TenantSpec(name="a", rate=50.0, n_pages=100),
-                         ttr.TenantSpec(name="b", rate=30.0, n_pages=80),
-                         n_requests=200, seed=1)
-    spec = T.SimSpec(traffic=mix, n_shards=2)
-    with pytest.raises(NotImplementedError, match="chunked-replay"):
-        T.simulate(spec, device="cpu")
-    # batched_reports is ported; per-tenant counters (a third item
-    # element) still need the chunked replay.
+    """The routes the chunked replay serves (they raised before it was
+    ported): ``simulate`` on a tenant mix, with its tenant reports, equal
+    to the reference's; ``batched_reports`` taking the tenant counters as
+    a third item element."""
+    mixes = [tr.tenant_mix(tr.TenantSpec(name="a", rate=50.0, n_pages=100),
+                           tr.TenantSpec(name="b", rate=30.0, n_pages=80),
+                           n_requests=200, seed=1) for tr in (jtr, ttr)]
+    jspec = J.SimSpec(traffic=mixes[0], n_shards=2)
+    spec = T.SimSpec(traffic=mixes[1], n_shards=2)
+    rep = T.simulate(spec, device="cpu")
+    assert [t.name for t in rep.tenants] == ["a", "b"]
+    assert _json(rep) == _json(J.simulate(jspec))
     assert T.batched_reports([]) == []
-    with pytest.raises(NotImplementedError, match="chunked-replay"):
-        T.batched_reports([(spec, None, ("tenant counters",))])
-    with pytest.raises(NotImplementedError):
-        T.TenantCounters(("a",), None, None, None)
+    ctr, tc, _ = T.stream_tier1_counters(spec, device="cpu")
+    assert isinstance(tc, T.TenantCounters) and tc.n_tenants == 2
+    (got,) = T.batched_reports([(spec, ctr, tc)], solver="scalar")
+    assert _json(got) == _json(rep)

@@ -35,6 +35,7 @@ from repro_torch.storage import tiered_store as tts
 
 # The module (``repro_torch.sim.sweep`` as an attribute is the function).
 tsw = importlib.import_module("repro_torch.sim.sweep")
+jsw = importlib.import_module("repro.sim.sweep")
 
 _BASE = dict(
     traffic=dict(kind="poisson", n_requests=300, n_pages=96,
@@ -281,33 +282,42 @@ def test_profile_reports_the_reference_stages():
 
 
 # ---------------------------------------------------------------------------
-# what is not ported
+# the chunked replay's routes and the per-step engine
 
 
 def test_stream_auto_raises_on_chunked_replay_signatures():
-    _, tspec = _specs()
-    big = tspec.replace(**{"traffic.n_requests": tsw.STREAM_THRESHOLD + 1})
-    with pytest.raises(NotImplementedError, match="chunked-replay slice"):
-        T.sweep(big, {"lam": [10.0]}, device="cpu")
+    """Under ``stream="auto"`` (the default) a stream past
+    ``STREAM_THRESHOLD`` and a tenant mix go through the chunked replay
+    (they raised before it was ported): the reports equal the reference's,
+    and ``stream="off"`` still runs the tenant mix through the megabatch,
+    as the reference does."""
+    jspec, tspec = _specs()
+    jbig = jspec.replace(**{"traffic.n_requests": 1000})
+    big = tspec.replace(**{"traffic.n_requests": 1000})
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(tsw, "STREAM_THRESHOLD", 999)
+        m.setattr(jsw, "STREAM_THRESHOLD", 999)
+        _same_scalar_json(jbig, big, {"lam": [10.0]})
     mix = tspec.replace(traffic=ttr.tenant_mix(
         ttr.TenantSpec("a", rate=50.0, n_pages=40),
         ttr.TenantSpec("b", rate=20.0, n_pages=60), n_requests=200))
-    with pytest.raises(NotImplementedError, match="chunked-replay slice"):
-        T.sweep(mix, {"lam": [10.0]}, device="cpu")
-    # stream="off" runs the tenant mix through the megabatch, as the
-    # reference does.
     jmix = _specs()[0].replace(traffic=jtr.tenant_mix(
         jtr.TenantSpec("a", rate=50.0, n_pages=40),
         jtr.TenantSpec("b", rate=20.0, n_pages=60), n_requests=200))
+    got = _same_scalar_json(jmix, mix, {"lam": [10.0]})
+    assert all(len(r.tenants) == 2 for r in got.reports)
     _same_scalar_json(jmix, mix, {"store.policy": ["ws", "lru"]},
                       stream="off")
 
 
 def test_scan_engine_and_default_device_raise(monkeypatch):
+    """``engine="scan"`` runs the megabatch through the per-step engine
+    (it raised before the chunked-replay port): the reference's
+    ``engine="scan"`` reports; the default device still needs a card."""
     import torch
-    _, tspec = _specs()
-    with pytest.raises(NotImplementedError, match="engine='scan'"):
-        T.sweep(tspec, {"lam": [10.0]}, engine="scan", device="cpu")
+    jspec, tspec = _specs()
+    _same_scalar_json(jspec, tspec, {"store.policy": ["ws", "random"]},
+                      engine="scan")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.sweep(tspec, {"lam": [10.0]})
