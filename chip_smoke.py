@@ -62,6 +62,19 @@ after:
    against its plain version from the checkpoint's carry with pads
    mid-row, in the default plan, at cluster 1 and in the scratch plan;
    ``engine="scan"`` on the card against the fused kernel.
+14. training (``repro_torch.launch.train.run_training``): (a) stablelm-3b
+   at full width (bf16 weights, f32 AdamW moments and error feedback,
+   remat) for 12 steps of 2 x 4,096 tokens from the two-tier data-shard
+   cache: finite losses and grad norms, the median step time, tokens/s,
+   model FLOP/s against the bf16 peak, peak memory, the card's busy share
+   over one step (``torch.profiler``) and the cache's hits and misses;
+   (b) three steps of reduced stablelm-3b in f32 on the card and on the
+   CPU from one state, within TRAIN_CPU_TOL; (c) the restart drill at
+   stablelm-3b's width and depth 2: a run killed after its first tier-1
+   snapshot and resumed equals an uninterrupted run bit for bit, with the
+   snapshot's save and restore times. The training path reaches no hand
+   kernel (the reference trains through its plain blockwise attention),
+   so its launch counts print as 0.
 
 It prints:
 
@@ -163,6 +176,25 @@ SSD_F32_TOL = 1e-4
 # kernel-level checks on captured inputs (y within one bf16 step, the state
 # within SSD_F32_TOL) carry the fine bar.
 SSD_HIDDEN_TOL = 0.2
+# Phase 14: training. (a) stablelm-3b at full width, 2 x 4,096 tokens (the
+# sequence of SHAPES["train_4k"]), 12 steps with the reference launcher's
+# hyperparameters; the step time is the median of steps 3-12.
+TRAIN = dict(arch="stablelm-3b", batch=2, seq=4096, steps=12, lr=3e-4)
+TRAIN_TIMED = slice(2, 12)
+# (b) three steps of reduced stablelm-3b in f32 on the card and on the CPU
+# from one state. The matmuls reduce in other orders on the two devices
+# (cuBLAS with TF32 off; the CPU's BLAS), which moves losses and grad
+# norms in their last bits (the port against the reference on the CPU:
+# 2.4e-7 relative); AdamW's m / (sqrt(v) + eps) turns last-bit differences
+# of gradients near zero into visible fractions of the learning rate (the
+# same comparison: up to 0.047 lr after three steps). So: losses and grad
+# norms within 1e-5 relative, every parameter within 0.1 lr a step.
+TRAIN_CPU = dict(batch=4, seq=64, steps=3, lr=1e-3)
+TRAIN_CPU_TOL = dict(rel=1e-5, lr_frac_per_step=0.1)
+# (c) the restart drill at full width and depth 2 (0.42 B parameters, a
+# 5.8 GB snapshot): 5 steps uninterrupted; killed after step index 3 with
+# a tier-1 snapshot every 3 steps (one, at step 3); resumed to step 5.
+DRILL = dict(layers=2, steps=5, kill_at=3, tier1_every=3)
 PROFILE_STEPS = 4  # decode steps traced with torch.profiler
 CONTROL_STEPS = 24  # decode steps of the noise-floor run
 
@@ -2476,6 +2508,261 @@ def phase_chunked_replay(full_ctr, full_rep, full_rows, full: dict,
                 chunked_tenant_wall_s=t_wall)
 
 
+def _busy_ms(prof) -> tuple[float, int, dict]:
+    """The union of the card's kernel and copy intervals in a profile, in
+    ms, the count of kernels, and the kernel time (ms) by group."""
+    spans = []
+    groups = dict(gemm=0.0, elementwise=0.0, reduce=0.0, index=0.0,
+                  copy=0.0, other=0.0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        start, dur = e.start_ns(), e.duration_ns()
+        spans.append((start, start + dur))
+        name = e.name().lower()
+        g = ("copy" if "memcpy" in name or "memset" in name else
+             "gemm" if any(x in name for x in ("gemm", "nvjet", "cutlass",
+                                                "sm90_xmma")) else
+             "elementwise" if "elementwise" in name else
+             "reduce" if "reduce" in name else
+             "index" if any(x in name for x in ("index", "scatter",
+                                                 "gather")) else "other")
+        groups[g] += dur / 1e6
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e6, len(spans), groups
+
+
+def _train_launches() -> dict:
+    from repro_torch.launch import serve
+    return {**launch_counts(), **serve.launch_counts()}
+
+
+def _reset_train_launches() -> None:
+    from repro_torch.launch import serve
+    reset_launch_counts()
+    serve.reset_launch_counts()
+
+
+def _train_full(root: str, card: str, dev) -> None:
+    """Phase 14 (a): stablelm-3b at full width through ``run_training``."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch.train import run_training
+    from repro_torch.storage.datacache import (DataCache, DataCacheConfig,
+                                               ShardedTokenStore)
+    from repro_torch.training.checkpoint import CheckpointConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainHyper, make_train_step
+    T = TRAIN
+    never = 10 ** 9  # no snapshot at full width (the smoke's time)
+    data = os.path.join(root, "data_full")
+    _reset_train_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = run_training(
+        arch=T["arch"], reduced=False, steps=T["steps"], batch=T["batch"],
+        seq=T["seq"], lr=T["lr"], data_dir=data, resume=False,
+        ckpt=CheckpointConfig(dir_tier1=os.path.join(root, "full_fast"),
+                              dir_tier2=os.path.join(root, "full_durable"),
+                              tier1_every=never, tier2_every=never),
+        log_every=T["steps"], device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = _train_launches()
+    losses, gnorms = out["losses"], out["grad_norms"]
+    if len(losses) != T["steps"] or not (np.all(np.isfinite(losses)) and
+                                        np.all(np.isfinite(gnorms))):
+        raise AssertionError(f"[train] non-finite or missing losses "
+                             f"{losses} / grad norms {gnorms}")
+    cfg = get_config(T["arch"])
+    B, S, L = T["batch"], T["seq"], cfg.n_layers
+    tokens = B * S
+    step_s = float(np.median(out["step_s"][TRAIN_TIMED]))
+    n = out["n_params"]
+    dense_flops = 6 * n * tokens
+    # Causal attention, forward: QK^T and PV over the visible half of each
+    # S x S score matrix, 2 flops a multiply-add: 2 * B * H * hd * S^2 a
+    # layer; training is three times the forward (the backward twice).
+    attn_flops = 3 * 2 * B * cfg.n_heads * cfg.head_dim * S * S * L
+    flops = dense_flops + attn_flops
+    share = flops / step_s / BF16_FLOPS_PER_S
+    log(f"[train, full width] {cfg.name}: {n:,} parameters (bf16; f32 "
+        f"AdamW moments and error feedback; remat), {T['steps']} steps of "
+        f"{B} x {S} tokens from the data-shard cache, lr {T['lr']} "
+        f"(warmup 20): run {wall:.1f} s (the first step {out['step_s'][0]:.2f} "
+        f"s); median step over steps 3-12 {1e3 * step_s:.1f} ms, "
+        f"{tokens / step_s:,.0f} tokens/s [{card}]")
+    log(f"[train, full width] model FLOPs a step: 6 N D = 6 x {n:,} x "
+        f"{tokens:,} = {dense_flops:.4e}, attention 3 x 2 B H hd S^2 L = "
+        f"{attn_flops:.4e}, total {flops:.4e}: {flops / step_s / 1e12:.1f} "
+        f"TFLOP/s, {100 * share:.1f}% of the bf16 dense peak 989 TFLOP/s "
+        f"[{card}]; peak memory (max_memory_allocated) "
+        f"{peak / 1e9:.2f} GB (reckoned ~55 GB) of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f} GB")
+    log(f"[train, full width] losses {[round(x, 4) for x in losses]}; grad "
+        f"norms {[round(x, 4) for x in gnorms]}; data cache: "
+        f"{out['cache_hits']} hits, {out['cache_misses']} misses; hand-"
+        f"kernel launches {launches} (the training path runs none)")
+
+    # One more step under torch.profiler: the card's busy share.
+    state = out.pop("state")
+    del out
+    hyper = TrainHyper(adamw=AdamWConfig(lr=T["lr"], warmup_steps=20,
+                                         decay_steps=max(T["steps"], 100)))
+    step_fn = make_train_step(cfg, hyper)
+    store = ShardedTokenStore(data, n_shards=16, shard_tokens=B * (S + 1) * 4,
+                              vocab=cfg.vocab)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in DataCache(
+        store, DataCacheConfig(cache_shards=4)).batch(T["steps"], B, S).items()}
+    torch.cuda.synchronize(dev)
+    # The card's activity alone: a step makes ~10^5 host ops, whose
+    # tracing would cost more than the step.
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize(dev)
+    traced_s = time.perf_counter() - t0
+    busy_ms, kernels, groups = _busy_ms(prof)
+    if not np.isfinite(float(m["loss"])) or busy_ms <= 0:
+        raise AssertionError("[train] the profiled step failed or traced no "
+                             "device time")
+    log(f"[train, profile] one step under torch.profiler: the card busy "
+        f"{busy_ms:.1f} ms (union of kernels and copies), "
+        f"{100 * busy_ms / (1e3 * step_s):.1f}% of the untraced median step "
+        f"{1e3 * step_s:.1f} ms ({100 * busy_ms / (1e3 * traced_s):.1f}% of "
+        f"the traced step's {1e3 * traced_s:.1f} ms); {kernels:,} kernels "
+        f"and copies; kernel ms by group "
+        f"{ {k: round(v, 1) for k, v in groups.items()} } [{card}]")
+    del state, m, batch, prof
+
+
+def _train_card_vs_cpu(card: str, dev) -> None:
+    """Phase 14 (b): three f32 steps of reduced stablelm-3b on the card
+    and on the CPU from one state."""
+    import dataclasses
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.training.compression import init_error_feedback
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import (TrainHyper, TrainState,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves, tree_map
+    C, tol = TRAIN_CPU, TRAIN_CPU_TOL
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]).reduced(),
+                              param_dtype="float32")
+    params = init_params(cfg, 0, "cpu")
+    cpu = TrainState(params, adamw_init(params, "float32"),
+                     init_error_feedback(params))
+    gpu = tree_map(lambda t: t.to(dev, copy=True), cpu)
+    step = make_train_step(cfg, TrainHyper(adamw=AdamWConfig(
+        lr=C["lr"], warmup_steps=0, decay_steps=100)))
+    rng = np.random.default_rng(0)
+    worst = dict(loss=0.0, grad_norm=0.0)
+    for _ in range(C["steps"]):
+        b = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (
+            C["batch"], C["seq"])).astype(np.int32)) for k in ("tokens",
+                                                               "labels")}
+        cpu, mc = step(cpu, b)
+        gpu, mg = step(gpu, {k: v.to(dev) for k, v in b.items()})
+        for k in worst:
+            a, g = float(mc[k]), float(mg[k])
+            worst[k] = max(worst[k], abs(g - a) / abs(a))
+    dp = max(float((g.cpu() - c).abs().max())
+             for g, c in zip(leaves(gpu.params), leaves(cpu.params)))
+    bound = tol["lr_frac_per_step"] * C["lr"] * C["steps"]
+    equal_steps = int(gpu.opt.step) == int(cpu.opt.step) == C["steps"]
+    ok = (max(worst.values()) <= tol["rel"] and dp <= bound and equal_steps)
+    log(f"[train, card vs cpu] {cfg.name} f32, {C['steps']} steps of "
+        f"{C['batch']} x {C['seq']}, lr {C['lr']}, TF32 off: loss rel "
+        f"{worst['loss']:.2e}, grad norm rel {worst['grad_norm']:.2e} (bar "
+        f"{tol['rel']:.0e}); params max |diff| {dp:.3e} = "
+        f"{dp / C['lr']:.4f} lr (bar {bound / C['lr']:.2f} lr)")
+    if not ok:
+        raise AssertionError("[train] card and CPU disagree beyond "
+                             "TRAIN_CPU_TOL")
+
+
+def _train_drill(root: str, card: str, dev) -> None:
+    """Phase 14 (c): the restart drill at full width, depth 2."""
+    from repro_torch.launch.train import run_training
+    from repro_torch.training.checkpoint import CheckpointConfig
+    from repro_torch.training.tree import leaves
+    D, T = DRILL, TRAIN
+    never = 10 ** 9
+
+    def ck(name, every):
+        return CheckpointConfig(dir_tier1=os.path.join(root, name, "fast"),
+                                dir_tier2=os.path.join(root, name, "durable"),
+                                tier1_every=every, tier2_every=never)
+
+    kw = dict(arch=T["arch"], reduced=False, layers=D["layers"],
+              steps=D["steps"], batch=T["batch"], seq=T["seq"], lr=T["lr"],
+              data_dir=os.path.join(root, "data_drill"), log_every=never,
+              device=dev)
+    full = run_training(ckpt=ck("uninterrupted", never), **kw)
+    want = [t.detach().cpu() for t in leaves(full.pop("state"))]
+    nbytes = sum(t.numel() * t.element_size() for t in want)
+    killed = run_training(ckpt=ck("drill", D["tier1_every"]),
+                          kill_at=D["kill_at"], **kw)
+    del killed["state"]
+    torch.cuda.empty_cache()
+    resumed = run_training(ckpt=ck("drill", D["tier1_every"]), **kw)
+    got = leaves(resumed.pop("state"))
+    k = D["tier1_every"]  # the step the snapshot holds
+    same_state = len(got) == len(want) and all(
+        a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        for a, b in zip(got, want))
+    ok = (killed.get("killed_at") == D["kill_at"]
+          and killed["losses"] == full["losses"][:D["kill_at"] + 1]
+          and resumed["losses"] == full["losses"][k:] and same_state)
+    save_s, restore_s = killed["save_s"], resumed["restore_s"]
+    log(f"[train, restart drill] {T['arch']} at full width, {D['layers']} "
+        f"layers ({full['n_params']:,} parameters), {T['batch']} x "
+        f"{T['seq']}: killed after step {D['kill_at']}, resumed from the "
+        f"tier-1 snapshot of step {k}: losses after it "
+        f"{resumed['losses']} vs uninterrupted {full['losses'][k:]}, final "
+        f"state {'equal bit for bit' if same_state else 'DIFFERENT'} "
+        f"({len(want)} leaves); snapshot {nbytes / 1e9:.2f} GB, save "
+        f"{save_s:.2f} s ({nbytes / 1e9 / save_s:.2f} GB/s), restore "
+        f"{restore_s:.2f} s ({nbytes / 1e9 / restore_s:.2f} GB/s) [{card}]")
+    if not ok:
+        raise AssertionError("[train] the resumed run differs from the "
+                             "uninterrupted one")
+
+
+def phase_train(dev=torch.device("cuda")) -> None:
+    """Phase 14: training through ``repro_torch.launch.train``."""
+    import shutil
+    import tempfile
+    gc.collect()  # the previous phases' models
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_smoke_", dir=build)
+    try:
+        _train_full(root, card, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _train_card_vs_cpu(card, dev)
+        _train_drill(root, card, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[train] phase 14 took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2499,6 +2786,7 @@ def main() -> int:
     rglru, at_rg = phase_rglru_serve()
     chunked = phase_chunked_replay(full_ctr, full_rep, full_rows, full,
                                    rates)
+    phase_train()
     for entry in serving:
         entry.update(at_rg[entry["name"]])
     cache_scan = dict(

@@ -15,7 +15,10 @@ A chunked replay begun in the reference resumes in the port through
 across as the port's.
 
 A served model's parameters come across with :func:`params_from_numpy`,
-so that the port and the reference compute the same model.
+so that the port and the reference compute the same model, and a
+training run's whole ``TrainState`` (parameters, AdamW moments and step,
+error feedback) with :func:`train_state_from_numpy`, so that a run begun
+in the reference resumes in the port.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ from repro_torch.storage.tiered_store import (
     Accum, StoreConfig, StoreHyper, StoreState, tree_map)
 
 __all__ = ["store_state_from_numpy", "store_hyper_from_numpy",
-           "stream_checkpoint_from_numpy", "params_from_numpy"]
+           "stream_checkpoint_from_numpy", "params_from_numpy",
+           "train_state_from_numpy"]
 
 _GROUPS = ((CacheState, (torch.int32, torch.bool, torch.bool, torch.int32,
                          torch.int32)),
@@ -148,7 +152,7 @@ def params_from_numpy(tree, *, device=None):
     numpy leaves (``jax.tree.map(np.asarray, params)``): the same nested
     dicts and lists (``blocks`` stacked ``[reps, ...]`` per pattern
     position, ``tail`` unstacked), each leaf a tensor of the leaf's dtype
-    on ``device``."""
+    on ``device``, holding its own copy of the leaf's bytes."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device=device)
                 for k, v in tree.items()}
@@ -158,4 +162,24 @@ def params_from_numpy(tree, *, device=None):
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bits
         return torch.from_numpy(arr.view(np.uint16).astype(np.int16)).view(
             torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    # A copy: the port updates parameters in place, and the reference's
+    # arrays may be read-only views of its own buffers.
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
+
+
+def train_state_from_numpy(tree, *, device=None):
+    """The port's :class:`~repro_torch.training.train_step.TrainState`
+    from the reference's with numpy leaves (``jax.tree.map(np.asarray,
+    state)``): its parameters, its ``AdamWState`` (the int32 step and the
+    moments ``mu`` / ``nu``) and its error feedback, each leaf a tensor of
+    the leaf's dtype on ``device``."""
+    from repro_torch.training.optimizer import AdamWState
+    from repro_torch.training.train_step import TrainState
+    opt = tree.opt
+    return TrainState(
+        params=params_from_numpy(tree.params, device=device),
+        opt=AdamWState(
+            step=torch.tensor(np.asarray(opt.step, np.int32), device=device),
+            mu=params_from_numpy(opt.mu, device=device),
+            nu=params_from_numpy(opt.nu, device=device)),
+        err_fb=params_from_numpy(tree.err_fb, device=device))

@@ -7,15 +7,18 @@ accumulated in f32. A product of two bf16 (or f32) tensors through
 what the reference's ``preferred_element_type=f32`` followed by a cast to
 the activation dtype computes. The dense projections and the
 unembedding stay ``torch.matmul``: the reference computes them outside any
-Pallas kernel.
+Pallas kernel. Every function here is differentiable under autograd, as
+the train step needs.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["dense", "rms_norm", "rope_tables", "apply_rope", "embed",
-           "unembed_greedy", "mlp_swiglu", "causal_conv1d"]
+           "unembed_loss", "unembed_greedy", "mlp_swiglu", "causal_conv1d"]
 
 _F32 = torch.float32
 # Vocabulary rows of the unembedding converted to f32 at a time.
@@ -61,6 +64,26 @@ def apply_rope(x: torch.Tensor, rope: tuple) -> torch.Tensor:
 def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """tokens [...] int -> [..., d]."""
     return emb[tokens.long()]
+
+
+def unembed_loss(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
+                 *, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Unembedding and cross-entropy: the mean NLL (f32) of ``labels [B,
+    S]`` under the f32 logits of x ``[B, S, d]`` and the unembedding ``[V,
+    d]``, as the reference computes it on one card: logsumexp shifted by
+    the logits' maximum (held constant under differentiation) minus the
+    label's logit. With ``mask [B, S]`` the mean runs over its weight."""
+    logits = torch.matmul(x.to(_F32), emb.to(_F32).t())   # [B, S, V]
+    m = logits.detach().amax(-1)
+    se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = torch.log(se) + m - label_logit
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(torch.sum(mask.to(_F32)), min=1.0)
+    else:
+        denom = float(nll.numel())
+    return torch.sum(nll) / denom
 
 
 def unembed_greedy(x: torch.Tensor, emb: torch.Tensor

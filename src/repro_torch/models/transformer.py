@@ -12,7 +12,11 @@ SSD and RG-LRU kernels (the kernels on the card, their plain versions on
 the CPU); :func:`fwd_hidden`, the independent full forward that decode is
 checked against, runs the plain
 :func:`~repro_torch.models.attention.blockwise_attention`, as the
-reference's does.
+reference's does. :func:`fwd_train` is the training loss on
+:func:`fwd_hidden`, each block under ``torch.utils.checkpoint`` when the
+configuration asks for remat (the reference's ``jax.checkpoint`` of each
+superblock); the reference's training forward reaches no Pallas kernel,
+and neither does the port's.
 
 The reference's MoE, encoder and VLM-prefix blocks are not ported yet
 (ROADMAP item 11.2); :func:`repro_torch.models.params.block_defs` raises
@@ -23,17 +27,27 @@ from __future__ import annotations
 from typing import Callable, Iterator, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import params as pm
 from repro_torch.models.attention import blockwise_attention
 from repro_torch.models.layers import (apply_rope, dense, embed, mlp_swiglu,
-                                       rms_norm, rope_tables)
+                                       rms_norm, rope_tables, unembed_loss)
 from repro_torch.models.rglru import recurrent_block
 from repro_torch.models.ssd import ssd_block
 
-__all__ = ["Layer", "layers", "apply_block", "fwd_hidden"]
+__all__ = ["Layer", "layers", "apply_block", "fwd_hidden", "fwd_train",
+           "Metrics"]
+
+_F32 = torch.float32
+
+
+class Metrics(NamedTuple):
+    loss: torch.Tensor
+    aux_loss: torch.Tensor
+    dropped: torch.Tensor
 
 
 class Layer(NamedTuple):
@@ -45,13 +59,18 @@ class Layer(NamedTuple):
 
 
 def layers(params: dict, cfg: ModelConfig) -> Iterator[Layer]:
-    """Every layer in order: the stacked superblocks, then the tail."""
+    """Every layer in order: the stacked superblocks, then the tail. A
+    stacked leaf is unbound once, so that under autograd its gradient is
+    one stack of the layers' gradients (indexing it layer by layer would
+    add a zero-filled gradient of the whole stack for every layer)."""
     attn_pp = tuple(i for i, k in enumerate(cfg.block_pattern)
                     if k.startswith("attn"))
     reps, tail = pm.model_layout(cfg)
+    unbound = [{k: w.unbind(0) for k, w in blk.items()}
+               for blk in params["blocks"]]
     for r in range(reps):
         for i, kind in enumerate(cfg.block_pattern):
-            p = {k: w[r] for k, w in params["blocks"][i].items()}
+            p = {k: w[r] for k, w in unbound[i].items()}
             li = (r * len(attn_pp) + attn_pp.index(i)
                   if kind.startswith("attn") else None)
             yield Layer(kind, p, li, i, r)
@@ -114,15 +133,48 @@ def apply_block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
     raise ValueError(kind)
 
 
+def _remat_block(kind: str, x, p: dict, cfg: ModelConfig, rope):
+    return apply_block(kind, x, p, cfg, rope, attend=blockwise_attention)[0]
+
+
 def fwd_hidden(params: dict, tokens: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     """Token ids ``[B, S]`` -> final (normed) hidden states ``[B, S, d]``,
-    with blockwise attention."""
+    with blockwise attention. Under autograd with ``cfg.remat``, each block
+    keeps only its input and recomputes the rest in the backward pass."""
     tokens = torch.as_tensor(tokens).to(params["embed"].device)
     x = embed(tokens, params["embed"])
     rope = rope_tables(torch.arange(x.shape[1], device=x.device)[None, :],
                        cfg.head_dim, cfg.rope_theta)
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer in layers(params, cfg):
-        x, _ = apply_block(layer.kind, x, layer.p, cfg, rope,
-                           attend=blockwise_attention)
+        if remat:
+            x = checkpoint(_remat_block, layer.kind, x, layer.p, cfg, rope,
+                           use_reentrant=False)
+        else:
+            x, _ = apply_block(layer.kind, x, layer.p, cfg, rope,
+                               attend=blockwise_attention)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def fwd_train(params: dict, batch: dict, cfg: ModelConfig, *,
+              aux_weight: float = 0.01) -> tuple[torch.Tensor, Metrics]:
+    """Next-token loss of ``batch`` (``tokens`` and ``labels``, ``[B, S]``)
+    and its metrics. The unembedding is ``unembed``, or ``embed`` when
+    tied; dense models have no auxiliary loss and drop no token. Only
+    attention blocks train here: the SSD and RG-LRU scans have no gradient
+    yet."""
+    kinds = set(cfg.layer_kinds())
+    if not all(k.startswith("attn") for k in kinds):
+        raise NotImplementedError(
+            f"training {cfg.name}: the {sorted(kinds)} blocks' scans have no "
+            "gradient yet (ROADMAP module item 5)")
+    x = fwd_hidden(params, batch["tokens"], cfg)
+    key = ("embed" if cfg.tie_embeddings or "unembed" not in params
+           else "unembed")
+    labels = torch.as_tensor(batch["labels"]).to(x.device)
+    loss = unembed_loss(x, params[key], labels)
+    aux = torch.zeros((), dtype=_F32, device=x.device)
+    dropped = torch.zeros((), dtype=_F32, device=x.device)
+    loss = loss + aux_weight * aux
+    return loss, Metrics(loss=loss, aux_loss=aux, dropped=dropped)
