@@ -75,6 +75,20 @@ after:
    snapshot's save and restore times. The training path reaches no hand
    kernel (the reference trains through its plain blockwise attention),
    so its launch counts print as 0.
+15. the §VII configurator: ``configure()`` on the test size of
+   ``tests/test_system.py`` on the card and on the CPU, every field of
+   every candidate equal and in the same order (one cache-scan launch a
+   cache size); then at a planner's size (IRM, 2^20 requests over 2^20
+   pages, 30% writes; 1,024 to 16,384 lines; k 1 to 64; λ 200), its
+   frontier, time and 5 launches.
+16. int8 KV serving at full width: phase 10's serve with
+   ``kv_dtype="int8"``: int8 pools of half phase 10's bytes with f32
+   scales, the tier state and learner equal to phase 10's bf16 run, the
+   paged kernel's int8 variant against its plain version on captured
+   inputs (a plain version without the bf16 rounding must fail that
+   bar), the plain path teacher-forced within phase 10's bars with two
+   planted faults above them (the v scale read for k; the scales one
+   slot off), and page copy on int8 slots and scale rows, byte for byte.
 
 It prints:
 
@@ -85,7 +99,8 @@ It prints:
   version's time and its bound, term by term (paged attention's time in
   a loop of wrapper calls, and from a CUDA graph of the kernel's launches
   alone as ``ms_graph``; the cache scan's chunked replay under
-  ``chunked_`` keys);
+  ``chunked_`` keys; paged attention's int8 variant under ``int8_``
+  keys);
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits nonzero. Without CUDA, or without the
@@ -197,6 +212,19 @@ TRAIN_CPU_TOL = dict(rel=1e-5, lr_frac_per_step=0.1)
 DRILL = dict(layers=2, steps=5, kill_at=3, tier1_every=3)
 PROFILE_STEPS = 4  # decode steps traced with torch.profiler
 CONTROL_STEPS = 24  # decode steps of the noise-floor run
+# Phase 15: the configurator on the test size of tests/test_system.py, on
+# the card and on the CPU, then at a planner's size: one shard of 16,384
+# lines at most (the eviction's argmin walks every line; one row at 2^18
+# lines would take tens of seconds).
+CONF_TEST = dict(spec=dict(kind="poisson", n_requests=600, n_pages=128),
+                 arrival_rate=100.0, cache_sizes=(16, 64), k_threads=(1, 16))
+CONF_PLAN = dict(spec=dict(kind="irm", n_requests=2**20, n_pages=2**20,
+                           write_fraction=0.3, seed=0),
+                 arrival_rate=200.0,
+                 cache_sizes=tuple(2**i for i in range(10, 15)),
+                 k_threads=(1, 4, 16, 64))
+# Phase 16: phase 10's serve with int8 KV pools.
+INT8_SERVE = dict(SERVE)
 
 
 def log(msg: str) -> None:
@@ -238,14 +266,15 @@ def graph_ms(fn, reps: int = 50) -> float:
 
 
 def _paged_inputs(call) -> tuple:
-    """A captured paged launch with q in f32 and the tables in int32 on
-    the pool's card, as the wrapper converts them: timing it times the
-    kernel alone."""
-    q, pool, slot, live, window = call
+    """A captured paged launch (``q, pool, slot, live, window`` and, for an
+    int8 pool, its scale) with q in f32 and the tables in int32 on the
+    pool's card, as the wrapper converts them: timing it times the kernel
+    alone."""
+    q, pool, slot, live, window, *scale = call
     dev = pool.device
     return (q.to(dev, torch.float32).contiguous(), pool,
             slot.to(dev, torch.int32).contiguous(),
-            live.to(dev, torch.int32).contiguous(), window)
+            live.to(dev, torch.int32).contiguous(), window, *scale)
 
 
 def filled_lines(row: np.ndarray, n_lines: int) -> int:
@@ -503,6 +532,12 @@ def phase_build():
     if spilled:
         raise AssertionError(f"the tensor-core flash kernel spills: "
                              f"{spilled}")
+    # The paged kernel's int8 instantiations (phase 16) must be built.
+    int8 = sorted(f["name"] for f in logs[pa.SOURCE]
+                  if f["name"].startswith("paged<int8"))
+    if int8 != ["paged<int8, 1>", "paged<int8, 4>"]:
+        raise AssertionError(f"ptxas's log of {pa.SOURCE.name} lacks the "
+                             f"int8 kernels: {int8}")
     # The RG-LRU kernels' special-function instructions (RGLRU_MUFU): a
     # thread's gate loop takes 2 channels x 16 steps, and the scan kernel
     # holds two copies of it (sub-chunks inside the sequence, and a ragged
@@ -518,7 +553,8 @@ def phase_build():
 
 def ptxas_functions(text: str) -> list:
     """Each kernel of a ``ptxas -v`` log: a short name (``tc<HD>`` and
-    ``f32<HD>`` for flash attention's two paths, ``paged<type, GT>``),
+    ``f32<HD>`` for flash attention's two paths, ``paged<type, GT>`` with
+    type bf16, f32 or int8),
     its registers and its spill stores and loads in bytes."""
     import re
     fns, cur = [], None
@@ -533,7 +569,8 @@ def ptxas_functions(text: str) -> list:
                 hit = re.search(pat, name)
                 if hit:
                     name = fmt.format(*(("bf16" if "bfloat16" in g else
-                                         "f32" if g == "f" else g)
+                                         "f32" if g == "f" else
+                                         "int8" if g == "a" else g)
                                         for g in hit.groups()))
                     break
             cur = dict(name=name, registers=None, spill_stores=0,
@@ -1128,11 +1165,13 @@ def _flash_bound(q, k, window=None) -> dict:
 def _paged_bound(calls, page: int) -> dict:
     """Decode attention over both tiers of one layer: every live K and V
     row of the owned pages read once (each page from one tier; inside the
-    sliding window where there is one), q read and the partials written,
-    at HBM's rate; 4 flops a live token, head dim and query head at the
-    f32 rate of the data sheet (67 TFLOP/s)."""
+    sliding window where there is one), with an int8 pool its two f32
+    scales a token, q read and the partials written, at HBM's rate; 4
+    flops a live token, head dim and query head, and with an int8 pool 3
+    a K or V element read (convert, scale, round to bf16), at the f32 rate
+    of the data sheet (67 TFLOP/s)."""
     nbytes = flops = 0
-    for q, pool, slot, live, window in calls:
+    for q, pool, slot, live, window, *scale in calls:
         B, H, hd = q.shape
         KV = pool.shape[3]
         tok = torch.arange(slot.shape[1] * page, device=slot.device)
@@ -1141,9 +1180,10 @@ def _paged_bound(calls, page: int) -> dict:
         if window > 0:
             on &= tok[None] >= n_live - window
         n = int(on.sum())
-        nbytes += n * 2 * KV * hd * pool.element_size() + 4 * q.numel() \
-            + 4 * (B * H * hd + 2 * B * H)
-        flops += 4 * n * hd * H
+        quant = bool(scale) and scale[0] is not None
+        nbytes += n * (2 * KV * hd * pool.element_size() + 8 * quant) \
+            + 4 * q.numel() + 4 * (B * H * hd + 2 * B * H)
+        flops += 4 * n * hd * H + 3 * n * 2 * KV * hd * quant
     return dict(_largest(dict(bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
                               ops_ms=1e3 * flops / 67e12)),
                 bytes=nbytes, flops=flops)
@@ -1155,8 +1195,8 @@ def _copy_bound(n_rows: int, row_bytes: int) -> dict:
                               / HBM_BYTES_PER_S)), bytes=2 * n_rows * row_bytes)
 
 
-def _profile_decode(cfg, params, run, S: dict, dev, tag: str = "serve"
-                    ) -> None:
+def _profile_decode(cfg, params, run, S: dict, dev, tag: str = "serve",
+                    kv_dtype: str = "auto") -> None:
     """Where a decode step's time goes: PROFILE_STEPS more steps of the
     kernel run (its pools hold pages past the last token), after one
     untraced step, under ``torch.profiler``; kernel time by group, its
@@ -1167,7 +1207,7 @@ def _profile_decode(cfg, params, run, S: dict, dev, tag: str = "serve"
     page = cfg.page_size
     sc = eng.ServeConfig(max_seq=-(-(S["prompt"] + S["new"]) // page) * page,
                          batch_local=S["requests"],
-                         hbm_fraction=S["hbm_fraction"])
+                         hbm_fraction=S["hbm_fraction"], kv_dtype=kv_dtype)
     dec = eng.make_decode_step(cfg, sc)
     state = run.state
     tok = torch.as_tensor(run.tokens[:, -1], device=dev)
@@ -1204,9 +1244,11 @@ def _profile_decode(cfg, params, run, S: dict, dev, tag: str = "serve"
         f"{syncs / PROFILE_STEPS:.1f} synchronizations a step")
 
 
-def phase_serve(dev=torch.device("cuda")) -> list:
+def phase_serve(dev=torch.device("cuda")) -> tuple:
     """Serving at full width through ``repro_torch.launch.serve``; returns
-    the flash-attention, paged-attention and page-copy kernel entries."""
+    the flash-attention, paged-attention and page-copy kernel entries, and
+    the run's tier state (its pools dropped), logprobs and pool bytes for
+    phase 16."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import page_gather as pg
     from repro_torch.kernels import paged_attention as pa
@@ -1241,13 +1283,13 @@ def phase_serve(dev=torch.device("cuda")) -> list:
             cap["flash"] = (q.clone(), k.clone(), v.clone(), kw)
         return flash0(q, k, v, **kw)
 
-    def paged_hook(q, pool, slot, live, window=0):
+    def paged_hook(q, pool, slot, live, window=0, scale=None):
         i = calls["paged"] - last
         if i in (0, 1, 2 * L - 2, 2 * L - 1):
             cap.setdefault("paged", []).append(
                 (q.clone(), pool, slot.clone(), live.clone(), window))
         calls["paged"] += 1
-        return paged0(q, pool, slot, live, window)
+        return paged0(q, pool, slot, live, window, scale=scale)
 
     def copy_hook(dst, src, di, si):
         if "copy" not in cap:
@@ -1353,12 +1395,12 @@ def phase_serve(dev=torch.device("cuda")) -> list:
     comb0, paged_k = eng.combine_partials, pa.paged_attention
     seen = dict(n=0)
 
-    def skip_page0(q, pool, slot, live, window=0):
+    def skip_page0(q, pool, slot, live, window=0, scale=None):
         seen["n"] += 1
         if seen["n"] % 2 == 0:   # the engine launches tier 1, then tier 2
             slot = slot.clone()
             slot[:, 0] = -1
-        return paged_k(q, pool, slot, live, window)
+        return paged_k(q, pool, slot, live, window, scale=scale)
     faults = {}
     for name, patch in (
             ("tier-2 partial dropped",
@@ -1529,6 +1571,11 @@ def phase_serve(dev=torch.device("cuda")) -> list:
         f"{fmt_bound(cb)}")
 
     _profile_decode(cfg, params, run, S, dev)
+    bf16_run = dict(kv=kv._replace(pool1=None, pool2=None, scale1=None,
+                                   scale2=None),
+                    logprobs=run.logprobs,
+                    pool_bytes=sum(p.numel() * p.element_size()
+                                   for p in (pool1, pool2)))
 
     def entry(name, src_file, replaces, **kw):
         return dict(name=name, route="cuda",
@@ -1561,7 +1608,7 @@ def phase_serve(dev=torch.device("cuda")) -> list:
               library_ms=c_lib,
               shape=f"{int(live.sum())} rows of {row_bytes} B into one layer "
                     f"of tier 2 (prefill population)"),
-    ]
+    ], bf16_run
 
 
 def _leaves(tree):
@@ -1946,12 +1993,12 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
             cap["flash"] = (q.clone(), k.clone(), v.clone(), kw)
         return flash0(q, k, v, **kw)
 
-    def paged_hook(q, pool, slot, live, window=0):
+    def paged_hook(q, pool, slot, live, window=0, scale=None):
         if calls["paged"] - last in (0, 1):
             cap.setdefault("paged", []).append(
                 (q.clone(), pool, slot.clone(), live.clone(), window))
         calls["paged"] += 1
-        return paged0(q, pool, slot, live, window)
+        return paged0(q, pool, slot, live, window, scale=scale)
 
     def copy_hook(dst, src, di, si):
         if "copy" not in cap:
@@ -2015,8 +2062,8 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
         return blockwise_attention(q.transpose(1, 2), k.transpose(1, 2),
                                    v.transpose(1, 2), **kw).transpose(1, 2)
 
-    def no_window(q, pool, slot, live, window=0):
-        return paged0(q, pool, slot, live, 0)
+    def no_window(q, pool, slot, live, window=0, scale=None):
+        return paged0(q, pool, slot, live, 0, scale=scale)
     handoff0 = rg._handoff
     last_f32 = {}
 
@@ -2763,6 +2810,333 @@ def phase_train(dev=torch.device("cuda")) -> None:
         f"[{card}]")
 
 
+def _same_value(a, b) -> bool:
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or (a != a and b != b)
+    return a == b
+
+
+def phase_configurator() -> None:
+    """Phase 15: ``configure()`` on the card against the same call on the
+    CPU (every field of every candidate equal, in order; one cache-scan
+    launch a cache size), then at a planner's size."""
+    import dataclasses
+
+    from repro_torch.core.configurator import configure
+    from repro_torch.core.traffic import TrafficSpec
+    t_phase = time.perf_counter()
+    kw = dict(CONF_TEST)
+    spec = TrafficSpec(**kw.pop("spec"))
+    reset_launch_counts()
+    card = configure(spec, device="cuda", **kw)
+    n_card = launch_counts()["cache_scan"]
+    cpu = configure(spec, device="cpu", **kw)
+    rows = [[dataclasses.asdict(c) for c in x] for x in (card, cpu)]
+    if len(card) != len(cpu) or not all(
+            _same_value(a[k], b[k]) for a, b in zip(*rows) for k in a):
+        raise AssertionError(f"[configurator] card != cpu:\n{rows[0]}\n"
+                             f"{rows[1]}")
+    if n_card != len(kw["cache_sizes"]):
+        raise AssertionError(f"[configurator] {n_card} cache-scan launches, "
+                             f"want {len(kw['cache_sizes'])}")
+    log(f"[configurator] test size (poisson, 600 requests, 128 pages, sizes "
+        f"{kw['cache_sizes']}, k {kw['k_threads']}, lambda "
+        f"{kw['arrival_rate']}): {len(card)} candidates equal to the CPU "
+        f"run field for field and in order; {n_card} cache-scan launches")
+
+    kw = dict(CONF_PLAN)
+    spec = TrafficSpec(**kw.pop("spec"))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cands = configure(spec, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = launch_counts()["cache_scan"]
+    keys = [(not c.equilibrium, c.predicted_time_s) for c in cands]
+    if n != len(kw["cache_sizes"]) or len(cands) != len(
+            kw["cache_sizes"]) * len(kw["k_threads"]) or keys != sorted(
+            keys) or not all(0.0 <= c.miss_rate <= 1.0 for c in cands):
+        raise AssertionError(f"[configurator] planner size: {n} launches, "
+                             f"{len(cands)} candidates, order {keys}")
+    log(f"[configurator] planner size (irm, 2^20 requests over 2^20 pages, "
+        f"30% writes, seed 0; ws; sizes {kw['cache_sizes']} lines, k "
+        f"{kw['k_threads']}, lambda {kw['arrival_rate']} req/s): "
+        f"{wall:.2f} s, {n} cache-scan launches; frontier (lines, k, miss, "
+        f"rho1, rho2, eq, T_pred s): " + "; ".join(
+            f"{c.n_lines} {c.k_threads} {c.miss_rate:.4f} {c.rho1:.4f} "
+            f"{c.rho2:.3f} {str(c.equilibrium)[0]} {c.predicted_time_s:.2f}"
+            for c in cands))
+    log(f"[configurator] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _tier_state_equal(a, b) -> list:
+    """The fields of two ``PagedKV`` tier states that differ (integers
+    exact, the learner's f32 weights bit for bit)."""
+    bad = [f for f in ("page_slot", "t2_slot", "lengths", "t", "t1_reads",
+                       "t2_reads", "evictions", "writebacks")
+           if not torch.equal(getattr(a, f), getattr(b, f))]
+    bad += [f"meta/ols {i}" for i, (x, y) in enumerate(zip(a.meta + a.ols,
+                                                           b.meta + b.ols))
+            if not torch.equal(x, y)]
+    if a.key != b.key:
+        bad.append("key")
+    if not torch.equal(a.ols.weights.view(torch.int32),
+                       b.ols.weights.view(torch.int32)):
+        bad.append("weights")
+    return bad
+
+
+def phase_int8_serve(bf16_run: dict, dev=torch.device("cuda")) -> dict:
+    """Phase 16: phase 10's serve with int8 KV pools; returns the int8
+    keys of the paged-attention, flash-attention and page-copy entries."""
+    from repro_torch.kernels import page_gather as pg
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain_versions
+    from repro_torch.kernels.ref import page_copy_ref, paged_attention_ref
+    from repro_torch.launch import serve
+    gc.collect()  # the previous phases' models
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    S = INT8_SERVE
+    cfg, params = serve.build(S["arch"], full=S["full"], seed=0, device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (S["requests"], S["prompt"])).astype(np.int32)
+    B, steps, L = S["requests"], S["new"] - 1, cfg.n_layers
+    common = dict(hbm_fraction=S["hbm_fraction"],
+                  promote_every=S["promote_every"], kv_dtype="int8")
+
+    # Capture the last decode step's paged launches at the first and last
+    # layers, and the first int8 and scale copies (layer 0's prefill
+    # population of tier 2).
+    calls = dict(paged=0)
+    cap: dict = {}
+    paged0, copy0 = pa.paged_attention, pg.page_copy
+    last = (steps - 1) * 2 * L
+
+    def paged_hook(q, pool, slot, live, window=0, scale=None):
+        if calls["paged"] - last in (0, 1, 2 * L - 2, 2 * L - 1):
+            cap.setdefault("paged", []).append(
+                (q.clone(), pool, slot.clone(), live.clone(), window, scale))
+        calls["paged"] += 1
+        return paged0(q, pool, slot, live, window, scale=scale)
+
+    def copy_hook(dst, src, di, si):
+        key = "copy_scale" if dst.dtype == torch.float32 else "copy"
+        if key not in cap:
+            cap[key] = (dst, src.clone(), di.clone(), si.clone())
+        return copy0(dst, src, di, si)
+
+    pa.paged_attention, pg.page_copy = paged_hook, copy_hook
+    serve.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run, run_h = _with_hidden(lambda: serve.serve(
+            cfg, params, prompts, new=S["new"], **common))
+    finally:
+        pa.paged_attention, pg.page_copy = paged0, copy0
+    launches = serve.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches["flash_attention"] != L or \
+            launches["paged_attention"] != 2 * L * steps or \
+            not launches["page_copy"] or launches["ssd_scan"] or \
+            launches["rglru_scan"]:
+        raise AssertionError(f"[int8 serve] launches {launches}, want {L} "
+                             f"flash, {2 * L * steps} paged, page copies")
+    kv = run.state.kv
+    if run.tokens.shape != (B, S["new"]) or not np.isfinite(
+            run.logprobs).all() or not ((run.tokens >= 0)
+                                        & (run.tokens < cfg.vocab)).all():
+        raise AssertionError("[int8 serve] output is not finite tokens / "
+                             "logprobs of the expected shape")
+    if not (kv.pool1.dtype == kv.pool2.dtype == torch.int8
+            and kv.scale1.dtype == kv.scale2.dtype == torch.float32
+            and kv.scale1.shape == kv.pool1.shape[:4]
+            and kv.scale2.shape == kv.pool2.shape[:4]):
+        raise AssertionError("[int8 serve] pools not int8 with f32 scales")
+    pool_bytes = sum(p.numel() * p.element_size()
+                     for p in (kv.pool1, kv.pool2))
+    sc_bytes = sum(p.numel() * 4 for p in (kv.scale1, kv.scale2))
+    if 2 * pool_bytes != bf16_run["pool_bytes"]:
+        raise AssertionError(f"[int8 serve] pools {pool_bytes} B, not half "
+                             f"of phase 10's {bf16_run['pool_bytes']} B")
+    bad = _tier_state_equal(kv, bf16_run["kv"])
+    if bad:
+        raise AssertionError(f"[int8 serve] tier state != phase 10's bf16 "
+                             f"run in {bad}")
+    gap = float(np.abs(run.logprobs - bf16_run["logprobs"]).max())
+    t1, t2 = int(kv.t1_reads[0]), int(kv.t2_reads[0])
+    log(f"[int8 serve] {cfg.name} (bf16 weights, seed 0), int8 KV pools, "
+        f"{B} requests x {S['prompt']} prompt tokens, {steps} decode steps, "
+        f"hbm_fraction {S['hbm_fraction']}: prefill {run.prefill_s:.3f} s, "
+        f"decode {run.decode_s:.3f} s ({B * steps / run.decode_s:.1f} tok/s, "
+        f"{1e3 * run.decode_s / steps:.2f} ms/step); pools {pool_bytes} B "
+        f"(phase 10's bf16 pools {bf16_run['pool_bytes']} B) + scales "
+        f"{sc_bytes} B; tier-1 page reads {t1}, tier-2 {t2}, evictions "
+        f"{int(kv.evictions[0])}, write-backs {int(kv.writebacks[0])}: tier "
+        f"state and learner equal phase 10's bf16 run (integers exact, f32 "
+        f"weights bit for bit); launches {launches}; peak memory "
+        f"{peak_gb:.1f} GB; logprob gap to phase 10's bf16 run "
+        f"{gap:.3e} (information only)")
+
+    # The whole path with the plain versions, fed the kernel run's tokens.
+    forced = torch.as_tensor(run.tokens[:, :-1], device=dev)
+    serve.reset_launch_counts()
+    with plain_versions():
+        plain, plain_h = _with_hidden(lambda: serve.serve(
+            cfg, params, prompts, new=S["new"], forced=forced, **common))
+    if any(serve.launch_counts().values()):
+        raise AssertionError("[int8 serve] the plain run launched a kernel")
+    bad = _tier_state_equal(kv, plain.state.kv)
+    if bad:
+        raise AssertionError(f"[int8 serve] kernel run != plain run in {bad}")
+    lp_err = float(np.abs(run.logprobs - plain.logprobs).max())
+    h_err = _hidden_err(run_h, plain_h)
+    # Planted faults on the kernel path over the first CONTROL_STEPS steps:
+    # the v scale read for k, and each slot read with the scales of the
+    # slot before it (a scale moved to the wrong slot).
+    n_ctl = min(CONTROL_STEPS, steps)
+    short = dict(new=n_ctl + 1, forced=forced[:, :n_ctl],
+                 max_seq=kv.page_slot.shape[1] * cfg.page_size, **common)
+
+    def v_for_k(q, pool, slot, live, window=0, scale=None):
+        bad = scale.clone()
+        bad[..., 0] = bad[..., 1]
+        return paged0(q, pool, slot, live, window, scale=bad)
+
+    def wrong_slot(q, pool, slot, live, window=0, scale=None):
+        return paged0(q, pool, slot, live, window, scale=scale.roll(1, 0))
+    faults = {}
+    for name, fn in (("v scale for k", v_for_k),
+                     ("scales one slot off", wrong_slot)):
+        pa.paged_attention = fn
+        try:
+            f_run, f_h = _with_hidden(lambda: serve.serve(
+                cfg, params, prompts, **short))
+        finally:
+            pa.paged_attention = paged0
+        faults[name] = (_hidden_err(f_h, plain_h), float(np.abs(
+            f_run.logprobs - plain.logprobs[:, :n_ctl + 1]).max()))
+        del f_run, f_h
+    log(f"[int8 serve, plain path] the same run with the plain versions, "
+        f"teacher-forced: prefill {plain.prefill_s:.3f} s, decode "
+        f"{plain.decode_s:.3f} s; tier state and learner equal; final hidden "
+        f"state |h - h_plain| / |h_plain| largest {h_err:.3e} (tolerance "
+        f"{HIDDEN_TOL}); logprobs max |diff| {lp_err:.3e} (tolerance "
+        f"{LOGPROB_TOL}); planted faults (kernel path, first {n_ctl} steps): "
+        + "; ".join(f"{k} {v[0]:.3e} (logprobs {v[1]:.3e})"
+                    for k, v in faults.items()))
+    if not h_err <= HIDDEN_TOL:
+        raise AssertionError(f"[int8 serve] hidden states differ by {h_err}")
+    if not lp_err <= LOGPROB_TOL:
+        raise AssertionError(f"[int8 serve] logprobs differ by {lp_err}")
+    for name, (e, _) in faults.items():
+        if not e > HIDDEN_TOL:
+            raise AssertionError(f"[int8 serve] planted fault '{name}' "
+                                 f"passes the comparison: {e} <= "
+                                 f"{HIDDEN_TOL}")
+    del plain, plain_h, run_h
+
+    # The int8 kernel against its plain version on the captured launches,
+    # and a planted fault: the plain version without the bf16 rounding.
+    pcalls = cap["paged"]
+    p_err = 0.0
+    for i, (qq, pool, slot, live, window, sc) in enumerate(pcalls):
+        got = pa.paged_attention_cuda(qq, pool, slot, live, window, sc)
+        want = paged_attention_ref(qq, pool, slot, live, window, sc)
+        for g, w, name in zip(got, want, ("acc", "m", "l")):
+            e = _rel_err(g, w)
+            p_err = max(p_err, e)
+            if not e <= PAGED_REL_TOL:
+                raise AssertionError(f"[int8 serve] paged kernel != plain in "
+                                     f"{name} (call {i}): {e}")
+    qq, pool, slot, live, window, sc = pcalls[0]
+    unrounded = pool.float() * sc[..., None, None]
+    got = pa.paged_attention_cuda(qq, pool, slot, live, window, sc)
+    no_round = max(_rel_err(g, w) for g, w in zip(got, paged_attention_ref(
+        qq, unrounded, slot, live, window)))
+    del unrounded
+    if not no_round > PAGED_REL_TOL:
+        raise AssertionError(f"[int8 serve] the paged check passes a plain "
+                             f"version without the bf16 rounding: "
+                             f"{no_round}")
+    first = pcalls[:2]
+    p_ms, _ = cuda_ms(lambda: [pa.paged_attention_cuda(*c) for c in first],
+                      reps=10)
+    conv = [_paged_inputs(c) for c in first]
+    p_graph = graph_ms(lambda: [pa.paged_attention_cuda(*c) for c in conv])
+    pp_ms, _ = cuda_ms(lambda: [paged_attention_ref(*c) for c in first],
+                       reps=3)
+    pb = _paged_bound(first, cfg.page_size)
+    log(f"[int8 serve, paged vs plain] last decode step, layers 0 and "
+        f"{L - 1}, tier 1 and tier 2: largest |diff| / largest |plain| of "
+        f"acc, m, l {p_err:.3e} (tolerance {PAGED_REL_TOL}); planted fault "
+        f"(plain without the bf16 rounding) {no_round:.3e}; layer 0, both "
+        f"tiers: kernel {p_ms:.4f} ms in a loop of calls, {p_graph:.4f} ms "
+        f"from a CUDA graph of its launches alone, plain {pp_ms:.3f} ms, "
+        f"{fmt_bound(pb)}")
+
+    # Page copy on int8 slots and on scale rows, byte for byte: layer 0's
+    # prefill population of tier 2 (pages, then scales) and a whole-slot
+    # write-back of resident slots (pools, then scales).
+    res = (kv.page_slot >= 0).reshape(-1).nonzero().reshape(-1)[:8]
+    wb_dst = kv.t2_slot.reshape(-1)[res]
+    wb_src = kv.page_slot.reshape(-1)[res]
+    cases = [(f"prefill population ({k})", whole, *cap[k])
+             for k, whole in (("copy", kv.pool2), ("copy_scale", kv.scale2))]
+    cases += [(f"write-back ({lo.dtype})", up, up, lo, wb_dst, wb_src)
+              for lo, up in ((kv.pool1, kv.pool2), (kv.scale1, kv.scale2))]
+    for name, whole, d, s_, i_d, i_s in cases:
+        off = (d.data_ptr() - whole.data_ptr()) // whole.element_size()
+        outs = []
+        for fn in (pg.page_copy_cuda, page_copy_ref):
+            buf = whole.clone()
+            view = buf.view(-1)[off:].as_strided(d.shape, d.stride())
+            fn(view, s_, i_d, i_s)
+            torch.cuda.synchronize()
+            outs.append(buf)
+        if not torch.equal(outs[0].view(torch.uint8).view(-1),
+                           outs[1].view(torch.uint8).view(-1)):
+            raise AssertionError(f"[int8 serve] page copy kernel != plain "
+                                 f"({name})")
+        del outs, buf, view
+    dst, src, di, si = cap["copy"]
+    live_rows = int(((di >= 0) & (si >= 0)).sum())
+    row_bytes = dst[0].numel() * dst.element_size()
+    buf = kv.pool2.clone()
+    view = buf.view(-1)[(dst.data_ptr() - kv.pool2.data_ptr()):].as_strided(
+        dst.shape, dst.stride())
+    c_ms, _ = cuda_ms(lambda: pg.page_copy_cuda(view, src, di, si), reps=5)
+    cb = _copy_bound(live_rows, row_bytes)
+    del buf, view
+    log(f"[int8 serve, page copy vs plain] layer 0's prefill population "
+        f"({live_rows} int8 pages of {row_bytes} B and their scale rows of "
+        f"{cap['copy_scale'][0][0].numel() * 4} B into tier 2) and a "
+        f"whole-slot write-back ({len(res)} slots of "
+        f"{kv.pool1[0].numel()} B and their scales of "
+        f"{kv.scale1[0].numel() * 4} B): equal byte for byte; int8 prefill "
+        f"population: kernel {c_ms:.3f} ms, {fmt_bound(cb)}")
+    _profile_decode(cfg, params, run, S, dev, tag="int8 serve",
+                    kv_dtype="int8")
+    log(f"[int8 serve] phase 16 took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card_line()}]")
+    del run, params
+    return dict(
+        paged_attention=dict(
+            int8_launches=launches["paged_attention"],
+            int8_max_abs_err=p_err, int8_ms=p_ms, int8_ms_graph=p_graph,
+            int8_plain_ms=pp_ms, int8_bound_ms=pb["bound_ms"],
+            int8_bound_by=pb["bound_by"], int8_bound_terms=pb["bound_terms"],
+            int8_no_bf16_rounding_err=no_round,
+            int8_shape=f"both tiers of layer 0 at the last decode step, "
+                       f"int8 pools {list(kv.pool1.shape)} / "
+                       f"{list(kv.pool2.shape)} with f32 scales"),
+        flash_attention=dict(int8_launches=launches["flash_attention"]),
+        page_copy=dict(int8_launches=launches["page_copy"], int8_ms=c_ms,
+                       int8_bound_ms=cb["bound_ms"]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2781,14 +3155,17 @@ def main() -> int:
     mrc = phase_mrc(full_size_spec().replace(
         **{"store.policy": "lru", "n_windows": 1}))
     mega = phase_megabatch(full_ctr, rates)
-    serving = phase_serve()
+    serving, bf16_run = phase_serve()
     ssd = phase_ssd_serve()
     rglru, at_rg = phase_rglru_serve()
     chunked = phase_chunked_replay(full_ctr, full_rep, full_rows, full,
                                    rates)
     phase_train()
+    phase_configurator()
+    int8 = phase_int8_serve(bf16_run)
     for entry in serving:
         entry.update(at_rg[entry["name"]])
+        entry.update(int8[entry["name"]])
     cache_scan = dict(
         name="cache_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/cache_scan.cu",

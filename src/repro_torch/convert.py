@@ -18,7 +18,11 @@ A served model's parameters come across with :func:`params_from_numpy`,
 so that the port and the reference compute the same model, and a
 training run's whole ``TrainState`` (parameters, AdamW moments and step,
 error feedback) with :func:`train_state_from_numpy`, so that a run begun
-in the reference resumes in the port.
+in the reference resumes in the port. A serve's paged KV state (the pools
+and their int8 scales, the page tables, the §III metadata, the learner,
+the key and the read counters) comes across with
+:func:`paged_kv_from_numpy`, so that the port's decode can start from the
+reference's prefill.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from repro_torch.storage.tiered_store import (
 
 __all__ = ["store_state_from_numpy", "store_hyper_from_numpy",
            "stream_checkpoint_from_numpy", "params_from_numpy",
-           "train_state_from_numpy"]
+           "train_state_from_numpy", "paged_kv_from_numpy"]
 
 _GROUPS = ((CacheState, (torch.int32, torch.bool, torch.bool, torch.int32,
                          torch.int32)),
@@ -183,3 +187,39 @@ def train_state_from_numpy(tree, *, device=None):
             mu=params_from_numpy(opt.mu, device=device),
             nu=params_from_numpy(opt.nu, device=device)),
         err_fb=params_from_numpy(tree.err_fb, device=device))
+
+
+def paged_kv_from_numpy(kv, *, device=None):
+    """The port's :class:`~repro_torch.serving.kvpool.PagedKV` from the
+    reference's with numpy leaves (``jax.tree.map(np.asarray, kv)``): the
+    pools (int8, bf16 or f32) and the scale pools on ``device`` (``None`` =
+    the card), the rest on the host, where the port keeps it. The counters
+    the reference does not keep (evictions, write-backs) start at 0."""
+    from repro_torch.device import resolve_device
+    from repro_torch.serving.kvpool import PagedKV
+    device = resolve_device(device)
+
+    def ints(x, dtype=torch.int32):
+        return torch.tensor(np.asarray(x)).to(dtype)
+    m = kv.meta
+    key = np.asarray(kv.key)
+    if key.dtype != np.uint32 or key.shape != (2,):
+        raise ValueError("the PRNG key must be uint32[2] (a raw threefry "
+                         f"key), got {key.dtype}{list(key.shape)}")
+    zero = torch.zeros(1, dtype=torch.int32)
+    return PagedKV(
+        pool1=params_from_numpy(kv.pool1, device=device),
+        pool2=params_from_numpy(kv.pool2, device=device),
+        scale1=params_from_numpy(kv.scale1, device=device),
+        scale2=params_from_numpy(kv.scale2, device=device),
+        meta=CacheState(ints(m.tags), ints(m.valid, torch.bool),
+                        ints(m.dirty, torch.bool), ints(m.freq),
+                        ints(m.ts)),
+        page_slot=ints(kv.page_slot), t2_slot=ints(kv.t2_slot),
+        ols=OLState(*(torch.tensor(np.asarray(x)).to(d) for x, d in zip(
+            kv.ols, _GROUPS[1][1]))),
+        lengths=ints(kv.lengths), t=ints(kv.t),
+        key=(int(key[0]), int(key[1])),
+        t2_reads=ints(kv.t2_reads), t1_reads=ints(kv.t1_reads),
+        evictions=zero.clone(), writebacks=zero.clone(),
+    )

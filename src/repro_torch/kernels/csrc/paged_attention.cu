@@ -54,11 +54,31 @@
 // next launch on the stream. The head dim must be a multiple of 16
 // bytes' worth of elements, and the pool 16-byte aligned (the wrapper
 // checks).
+//
+// int8 pools (the serving engine's kv_dtype "int8"; dtype code 2) come
+// with an f32 scale pool, one scale a (slot, token, k/v) of the layer,
+// [page, 2] contiguous a slot and `scale_stride` floats between slots.
+// The tile copies bring the codes into int8 staging rows, each token's k
+// scale with its K rows and its v scale with its V rows (4-byte
+// cp.async, into two [kTile] arrays). Once a tile's K (then its V) has
+// landed, the block dequantizes it once into the bf16 rows the bf16 path
+// reads, each code as the reference's bf16(f32(q) * sc)
+// (repro/serving/kvpool.py: read_pages); from there the arithmetic is the
+// bf16 path's, so the result equals the bf16 kernel's on the dequantized
+// pool bit for bit. The pass and its barrier cost a fifth of the bf16
+// time, whether the next tile's copy starts before or after it (an H100
+// measures the pair of tier launches at 1.22x bf16's); dequantizing inside
+// the score loop instead repeats it for every query head of a thread's
+// group and took 1.8x. A page skipped for its slot has no scale read. int8 halves the
+// bytes a token moves against bf16: hd bytes of K and of V plus 8 bytes
+// of scales.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -92,6 +112,34 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// Four int8 codes with their scale as bf16, as the reference dequantizes
+// them: bf16(f32(q) * sc), rounded to nearest even. f32(q) is exact
+// without the slow integer conversion: q + 128 as the low byte of the
+// float 2^23 (one byte permute), minus 2^23 + 128.
+__device__ __forceinline__ void deq4(const int8_t* src, float sc,
+                                     __nv_bfloat16* dst) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(src) ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = (__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 + i)) -
+            8388736.f) * sc;
+  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
+  d[0] = __floats2bfloat162_rn(f[0], f[1]);
+  d[1] = __floats2bfloat162_rn(f[2], f[3]);
+}
+
+// The type the block computes from: bf16 for int8 codes (dequantized in
+// shared memory), else the pool's own.
+template <typename T>
+using compute_t = typename std::conditional<std::is_same<T, int8_t>::value,
+                                            __nv_bfloat16, T>::type;
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
@@ -123,7 +171,7 @@ __host__ __device__ inline int token_groups(int n_items) {
 
 // Byte offsets of the shared-memory arrays (host and kernel agree).
 struct Smem {
-  int q, p, m, l, c, a, w, slot, live, k, v, total;
+  int q, p, m, l, c, a, w, slot, live, ksc, vsc, k, v, k8, v8, total;
   __host__ __device__ Smem(int G, int hd, int n_split, int n_bp, int TG,
                            int elem) {
     int o = 0;  // the f32 arrays read as float4 first: 16-byte aligned
@@ -137,10 +185,18 @@ struct Smem {
     w = o;    o += 8 * G * n_split;      // [G, n_split] (m, l), then weight
     slot = o; o += 4 * n_bp;             // the block's page slots
     live = o; o += 4 * (n_split + 1);    // splits with a token, and count
+    const bool int8 = elem == 1;
+    const int n_sc = int8 ? 4 * kTile : 0;  // int8: the tile's scales
+    ksc = o;  o += n_sc;                 // [kTile] k scales
+    vsc = o;  o += n_sc;                 // [kTile] v scales
     o = (o + 15) / 16 * 16;
-    const int V = 16 / elem;
-    k = o;    o += elem * kTile * (hd + V);  // K rows padded by 16 bytes
-    v = o;    o += elem * kTile * hd;
+    const int ce = int8 ? 2 : elem;      // the compute type's bytes
+    const int V = 16 / ce;
+    k = o;    o += ce * kTile * (hd + V);  // K rows padded by 16 bytes
+    v = o;    o += ce * kTile * hd;
+    const int n8 = int8 ? kTile * hd : 0;  // int8: the codes as copied
+    k8 = o;   o += n8;
+    v8 = o;   o += n8;
     total = o;
   }
 };
@@ -148,7 +204,10 @@ struct Smem {
 template <typename T, int GT>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
-                       long long slot_stride, int n_slots,
+                       long long slot_stride,
+                       const float* __restrict__ kv_scale,
+                       long long sc_stride,
+                       int n_slots,
                        const int* __restrict__ page_slot,
                        const int* __restrict__ lengths,
                        float* __restrict__ part, int* __restrict__ counters,
@@ -162,7 +221,10 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
   const int bk = blockIdx.x / n_split;  // b * KV + kv head
   const int b = bk / KV, kvh = bk % KV;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int V = vec_elems<T>();
+  using C = compute_t<T>;
+  constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  constexpr int V = vec_elems<C>();
+  constexpr int VT = vec_elems<T>();  // the pool's elements in 16 bytes
   const int ks = hd + V;   // K row padded by 16 bytes
   const int vpr = hd / V;  // 16-byte vectors a row
   const int dgs = hd / 4;
@@ -179,8 +241,15 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
   float2* w_s = reinterpret_cast<float2*>(smem + lay.w);
   int* slot_s = reinterpret_cast<int*>(smem + lay.slot);
   int* live_s = reinterpret_cast<int*>(smem + lay.live);
-  T* k_s = reinterpret_cast<T*>(smem + lay.k);  // [kTile, ks]
-  T* v_s = reinterpret_cast<T*>(smem + lay.v);  // [kTile, hd]
+  C* k_s = reinterpret_cast<C*>(smem + lay.k);  // [kTile, ks]
+  C* v_s = reinterpret_cast<C*>(smem + lay.v);  // [kTile, hd]
+  // Where the copies land: the rows themselves, or for int8 the staging
+  // rows [kTile, hd] of codes and the scales.
+  T* k_in = reinterpret_cast<T*>(smem + (kQuant ? lay.k8 : lay.k));
+  T* v_in = reinterpret_cast<T*>(smem + (kQuant ? lay.v8 : lay.v));
+  const int k_pitch = kQuant ? hd : ks;
+  float* ksc_s = reinterpret_cast<float*>(smem + lay.ksc);  // int8 only
+  float* vsc_s = reinterpret_cast<float*>(smem + lay.vsc);
 
   const int len = lengths[b];
   const int lo = window > 0 ? max(len - window, 0) : 0;  // first live token
@@ -214,44 +283,67 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
   // is in the pool, in order. next(t0) is the first at or after token t0.
   struct Tile {
     int t0, n;
-    const T* base;  // its first token's K row; V is KV hd further
+    const T* base;       // its first token's K row; V is KV hd further
+    const float* sbase;  // int8: its first token's (k, v) scales
   };
   auto next = [&](int t0) {
     while (t0 < t_end) {
       const int p = t0 / page;
       const int p_end = min((p + 1) * page, t_end);
       const int slot = slot_s[p - p_first];
-      if (slot >= 0 && slot < n_slots)
+      if (slot >= 0 && slot < n_slots) {
+        const long long in_page = t0 - p * page;
         return Tile{t0, min(kTile, p_end - t0),
-                    pool + slot * slot_stride +
-                        static_cast<long long>(t0 - p * page) * tok_stride +
-                        static_cast<long long>(kvh) * hd};
+                    pool + slot * slot_stride + in_page * tok_stride +
+                        static_cast<long long>(kvh) * hd,
+                    kQuant ? kv_scale + slot * sc_stride + 2 * in_page
+                           : nullptr};
+      }
       t0 = p_end;
     }
-    return Tile{t_end, 0, nullptr};
+    return Tile{t_end, 0, nullptr, nullptr};
   };
-  // 16-byte copies of a tile's K rows or V rows (off = 0 or KV hd), as
-  // one group (empty for no tile).
-  auto copy = [&](const Tile& tl, T* dst, int pitch, long long off) {
-    for (int e = tid; e < tl.n * vpr; e += kThreads) {
-      const int t = e / vpr, c = e - t * vpr;
-      cp_async16(dst + t * pitch + c * V, tl.base + t * tok_stride + off +
-                                              c * V);
+  // 16-byte copies of a tile's K rows or V rows (off = 0 or KV hd), and
+  // for int8 their scales (which = 0 or 1), as one group (empty for no
+  // tile).
+  auto copy = [&](const Tile& tl, T* dst, int pitch, long long off,
+                  float* sc_dst, int which) {
+    const int n_vec = hd / VT;
+    for (int e = tid; e < tl.n * n_vec; e += kThreads) {
+      const int t = e / n_vec, c = e - t * n_vec;
+      cp_async16(dst + t * pitch + c * VT, tl.base + t * tok_stride + off +
+                                               c * VT);
     }
+    if constexpr (kQuant)
+      for (int t = tid; t < tl.n; t += kThreads)
+        cp_async4(sc_dst + t, tl.sbase + 2 * t + which);
     cp_async_commit();
+  };
+  // int8: a landed tile's codes (n rows) into bf16 rows of `pitch`, each
+  // code dequantized once (then a barrier before the rows are read).
+  auto dequant = [&](const T* src, const float* sc, C* dst, int pitch,
+                     int n) {
+    const int q4 = hd / 4;
+    for (int e = tid; e < n * q4; e += kThreads) {
+      const int t = e / q4, c = e - t * q4;
+      deq4(reinterpret_cast<const int8_t*>(src) + t * hd + 4 * c, sc[t],
+           reinterpret_cast<__nv_bfloat16*>(dst + t * pitch + 4 * c));
+    }
+    __syncthreads();
   };
   // The next tile's K lands while this tile's softmax and P V run, its V
   // while its own scores are computed: groups K0 V0 K1 V1 .., each wait
   // leaves the newest group in flight.
   const long long v_off = static_cast<long long>(KV) * hd;
   Tile cur = next(max(split * span, lo));
-  copy(cur, k_s, ks, 0);
-  copy(cur, v_s, hd, v_off);
+  copy(cur, k_in, k_pitch, 0, ksc_s, 0);
+  copy(cur, v_in, hd, v_off, vsc_s, 1);
   while (cur.n > 0) {
     const int n = cur.n;  // tokens of this tile
     const Tile nxt = next(cur.t0 + n);
     cp_async_wait<1>();  // this tile's K
     __syncthreads();
+    if constexpr (kQuant) dequant(k_in, ksc_s, k_s, ks, n);
 
     // Scores: thread (token t, query heads gq GT..gq GT + GT - 1); a warp
     // reads 32 K rows, the queries are broadcast.
@@ -265,11 +357,11 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
 #pragma unroll
         for (int x = 0; x < 4; ++x) s[gi][x] = 0.f;
       if (t < n) {
-        const T* kr = k_s + t * ks;
+        const C* kr = k_s + t * ks;
         const float* qg = q_s + gq * GT * hd;
         for (int c = 0; c < vpr; ++c) {
           const uint4 raw = *reinterpret_cast<const uint4*>(kr + c * V);
-          const T* x = reinterpret_cast<const T*>(&raw);
+          const C* x = reinterpret_cast<const C*>(&raw);
 #pragma unroll
           for (int j = 0; j < V; j += 4) {
 #pragma unroll
@@ -290,7 +382,7 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
                   : kNeg;
     }
     __syncthreads();
-    copy(nxt, k_s, ks, 0);
+    copy(nxt, k_in, k_pitch, 0, ksc_s, 0);
 
     // The softmax update: a warp a query head, two tokens a lane.
     for (int g = warp; g < G; g += kWarps) {
@@ -312,6 +404,7 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
     }
     cp_async_wait<1>();  // this tile's V
     __syncthreads();
+    if constexpr (kQuant) dequant(v_in, vsc_s, v_s, hd, n);
 
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
@@ -340,7 +433,7 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
       }
     }
     __syncthreads();  // V and the weights are read
-    copy(nxt, v_s, hd, v_off);
+    copy(nxt, v_in, hd, v_off, vsc_s, 1);
     cur = nxt;
   }
   cp_async_wait<0>();
@@ -487,8 +580,9 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ pool,
 
 template <typename T, int GT>
 int launch_t(const float* q, const void* pool, long long slot_stride,
-             int n_slots, const int* page_slot, const int* lengths,
-             float* part, int* counters, float* acc, float* m, float* l,
+             const float* kv_scale, long long sc_stride, int n_slots,
+             const int* page_slot, const int* lengths, float* part,
+             int* counters, float* acc, float* m, float* l,
              int B, int H, int KV, int hd, int page, int n_pages, int n_split,
              int span, int window, cudaStream_t stream) {
   const int G = H / KV;
@@ -502,25 +596,27 @@ int launch_t(const float* q, const void* pool, long long slot_stride,
   }
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
   kern<<<B * KV * n_split, kThreads, lay.total, stream>>>(
-      q, static_cast<const T*>(pool), slot_stride, n_slots, page_slot,
-      lengths, part, counters, acc, m, l, H, KV, hd, page, n_pages, n_split,
-      span, window, scale);
+      q, static_cast<const T*>(pool), slot_stride, kv_scale, sc_stride,
+      n_slots, page_slot, lengths, part, counters, acc, m, l, H, KV, hd,
+      page, n_pages, n_split, span, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(int G, const float* q, const void* pool, long long slot_stride,
-           int n_slots, const int* page_slot, const int* lengths, float* part,
+           const float* kv_scale, long long sc_stride, int n_slots,
+           const int* page_slot, const int* lengths, float* part,
            int* counters, float* acc, float* m, float* l, int B, int H,
            int KV, int hd, int page, int n_pages, int n_split, int span,
            int window, cudaStream_t st) {
   if (G >= 8 && G % 4 == 0)
-    return launch_t<T, 4>(q, pool, slot_stride, n_slots, page_slot, lengths,
-                          part, counters, acc, m, l, B, H, KV, hd, page,
-                          n_pages, n_split, span, window, st);
-  return launch_t<T, 1>(q, pool, slot_stride, n_slots, page_slot, lengths,
-                        part, counters, acc, m, l, B, H, KV, hd, page,
-                        n_pages, n_split, span, window, st);
+    return launch_t<T, 4>(q, pool, slot_stride, kv_scale, sc_stride, n_slots,
+                          page_slot, lengths, part, counters, acc, m, l, B,
+                          H, KV, hd, page, n_pages, n_split, span, window,
+                          st);
+  return launch_t<T, 1>(q, pool, slot_stride, kv_scale, sc_stride, n_slots,
+                        page_slot, lengths, part, counters, acc, m, l, B, H,
+                        KV, hd, page, n_pages, n_split, span, window, st);
 }
 
 }  // namespace
@@ -535,16 +631,19 @@ const char* paged_attention_error_string(int code) {
 // G / GT x hd / 4 acc items over kThreads x kItems.
 int paged_attention_max_items() { return kThreads * kItems; }
 
-// q f32 [B, H, hd]; pool: element type `dtype` (0 = f32, 1 = bf16), slot 0
-// of the layer at `pool`, slots `slot_stride` elements apart, each
-// [page, 2, KV, hd] contiguous; page_slot int32 [B, n_pages]; lengths
+// q f32 [B, H, hd]; pool: element type `dtype` (0 = f32, 1 = bf16, 2 =
+// int8), slot 0 of the layer at `pool`, slots `slot_stride` elements
+// apart, each [page, 2, KV, hd] contiguous; kv_scale (int8 only, else
+// unread): f32 [slots, page, 2] of the layer, slots `scale_stride` floats
+// apart, 8-byte aligned; page_slot int32 [B, n_pages]; lengths
 // int32 [B]; window: tokens below lengths - window are masked (<= 0:
 // none); n_split blocks a (sequence, kv head), block s over the tokens
 // [s span, (s + 1) span); part: f32 workspace [B, KV, n_split, H / KV,
 // hd + 2]; counters: int32 [>= B KV], zero, left zero; acc f32 [B, H,
 // hd], m/l f32 [B, H]. Returns the launch error.
 int paged_attention_launch(const float* q, const void* pool, int dtype,
-                           long long slot_stride, int n_slots,
+                           long long slot_stride, const float* kv_scale,
+                           long long scale_stride, int n_slots,
                            const int* page_slot, const int* lengths,
                            float* part, int* counters, float* acc, float* m,
                            float* l, int B, int H, int KV, int hd, int page,
@@ -554,14 +653,23 @@ int paged_attention_launch(const float* q, const void* pool, int dtype,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / KV;
   if (dtype == 0)
-    return launch<float>(G, q, pool, slot_stride, n_slots, page_slot,
-                         lengths, part, counters, acc, m, l, B, H, KV, hd,
-                         page, n_pages, n_split, span, window, st);
+    return launch<float>(G, q, pool, slot_stride, kv_scale, scale_stride,
+                         n_slots, page_slot, lengths, part, counters, acc, m,
+                         l, B, H, KV, hd, page, n_pages, n_split, span,
+                         window, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(G, q, pool, slot_stride, n_slots, page_slot,
-                                 lengths, part, counters, acc, m, l, B, H,
-                                 KV, hd, page, n_pages, n_split, span,
-                                 window, st);
+    return launch<__nv_bfloat16>(G, q, pool, slot_stride, kv_scale,
+                                 scale_stride, n_slots, page_slot, lengths,
+                                 part, counters, acc, m, l, B, H, KV, hd,
+                                 page, n_pages, n_split, span, window, st);
+  if (dtype == 2) {
+    if (kv_scale == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch<int8_t>(G, q, pool, slot_stride, kv_scale, scale_stride,
+                          n_slots, page_slot, lengths, part, counters, acc,
+                          m, l, B, H, KV, hd, page, n_pages, n_split, span,
+                          window, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

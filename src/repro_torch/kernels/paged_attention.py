@@ -17,6 +17,13 @@ engine's ``[slots, layers, page, 2, KV, hd]`` pools is passed as
 window``). Output f32 ``acc [B, H, hd]``, ``m [B, H]``, ``l [B,
 H]``.
 
+An int8 pool (the serving engine's ``kv_dtype="int8"``) comes with its
+scale pool ``scale [slots, page, 2]`` f32, one scale a (token, k/v),
+again any slot stride (``scale[:, li]`` of ``[slots, layers, page, 2]``)
+with each slot's ``[page, 2]`` contiguous; the kernel reads each element
+as the reference's ``bf16(f32(q) * sc)`` and the rest of its arithmetic
+is unchanged.
+
 The kernel splits each (sequence, kv head)'s tokens across
 ``n_split`` blocks (:func:`split_plan`, from the shapes alone) and merges
 their partials in the same launch, in split order: one launch a call, the
@@ -42,7 +49,7 @@ __all__ = ["paged_attention", "paged_attention_cuda", "split_plan",
            "reset_paged_attention_launch_count"]
 
 SOURCE = CSRC / "paged_attention.cu"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # The split aims at TARGET_BLOCKS blocks: 4 of the kernel's 256-thread
 # blocks on each of an H100 SXM's 132 SMs.
 TARGET_BLOCKS = 4 * 132
@@ -68,7 +75,7 @@ def _library():
     if _LIB[0] is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         _LIB[0] = load_library(SOURCE, "paged_attention_launch",
-                               [p, p, i, ll, i, p, p, p, p, p, p, p]
+                               [p, p, i, ll, p, ll, i, p, p, p, p, p, p, p]
                                + [i] * 9 + [p])
         _LIB[0].paged_attention_max_items.restype = i
     return _LIB[0]
@@ -94,10 +101,19 @@ def _counters(dev: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _check(q, pool, page_slot, lengths) -> None:
+def _check(q, pool, page_slot, lengths, scale=None) -> None:
     if q.dim() != 3 or pool.dim() != 5 or pool.shape[2] != 2:
         raise ValueError("q must be [B, H, hd] and pool [slots, page, 2, KV, "
                          f"hd]; got {tuple(q.shape)}, {tuple(pool.shape)}")
+    if (pool.dtype == torch.int8) != (scale is not None):
+        raise ValueError("an int8 pool needs its scale pool, and only an "
+                         "int8 pool takes one")
+    if scale is not None and (
+            tuple(scale.shape) != tuple(pool.shape[:3])
+            or scale.dtype != torch.float32 or scale.device != pool.device):
+        raise ValueError(f"scale must be f32 [slots, page, 2] = "
+                         f"{list(pool.shape[:3])} on the pool's device; got "
+                         f"{scale.dtype}{list(scale.shape)} on {scale.device}")
     B, H, hd = q.shape
     if pool.shape[4] != hd or H % pool.shape[3]:
         raise ValueError("q and the pool disagree in head dim, or the kv "
@@ -109,25 +125,30 @@ def _check(q, pool, page_slot, lengths) -> None:
 
 def paged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
                          page_slot: torch.Tensor, lengths: torch.Tensor,
-                         window: int = 0):
-    """Launch the kernel: pool on the card (f32 or bf16), its slots
-    contiguous inside, 16-byte aligned, with a head dim of whole 16-byte
-    vectors; q, page_slot and lengths are moved to the pool's device if
-    they are not there. Slots at or past ``pool.shape[0]`` are skipped
-    like ``-1``.
+                         window: int = 0, scale=None):
+    """Launch the kernel: pool on the card (f32, bf16, or int8 with its
+    ``scale``), its slots contiguous inside, 16-byte aligned, with a head
+    dim of whole 16-byte vectors; q, page_slot and lengths are moved to
+    the pool's device if they are not there. Slots at or past
+    ``pool.shape[0]`` are skipped like ``-1``, their scales unread.
 
     The blocks of a (sequence, kv head) count themselves on one int32
     counter of a buffer kept per device (zeroed once; the last block
     resets it), so calls on one device are ordered on its current
     stream: two calls on two streams at once would share counters."""
-    _check(q, pool, page_slot, lengths)
+    _check(q, pool, page_slot, lengths, scale)
     dev = pool.device
     if dev.type != "cuda":
         raise ValueError(f"paged_attention_cuda needs a CUDA pool, got {dev}")
     if pool.dtype not in _DTYPES:
-        raise ValueError(f"pool dtype {pool.dtype} not supported (f32, bf16)")
+        raise ValueError(f"pool dtype {pool.dtype} not supported (f32, bf16, "
+                         f"int8)")
     if not pool[0].is_contiguous():
         raise ValueError("each pool slot must be contiguous")
+    if scale is not None and (not scale[0].is_contiguous()
+                              or scale.data_ptr() % 8):
+        raise ValueError("each scale slot must be contiguous and the scale "
+                         "pool 8-byte aligned")
     vec = 16 // pool.element_size()  # the kernel's 16-byte loads
     if pool.shape[4] % vec or pool.stride(0) % vec or pool.data_ptr() % 16:
         raise ValueError(f"the kernel reads 16-byte vectors: the head dim and "
@@ -154,7 +175,9 @@ def paged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
     counters = _counters(dev, B * KV)
     err = lib.paged_attention_launch(
         qf.data_ptr(), pool.data_ptr(), _DTYPES[pool.dtype], pool.stride(0),
-        slots, ps.data_ptr(), ln.data_ptr(), part.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        0 if scale is None else scale.stride(0), slots, ps.data_ptr(),
+        ln.data_ptr(), part.data_ptr(),
         counters.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B,
         H, KV, hd, page, n_pages, n_split, span, int(window),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -165,15 +188,16 @@ def paged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
 
 def paged_attention(q: torch.Tensor, pool: torch.Tensor,
                     page_slot: torch.Tensor, lengths: torch.Tensor,
-                    window: int = 0):
+                    window: int = 0, scale=None):
     """The partial ``(acc, m, l)`` over the pool's pages (the last
-    ``window`` tokens of each sequence only, with a ``window`` > 0): the
-    plain version for a CPU pool, the kernel for a CUDA pool."""
-    _check(q, pool, page_slot, lengths)
+    ``window`` tokens of each sequence only, with a ``window`` > 0; an
+    int8 pool with its ``scale``): the plain version for a CPU pool, the
+    kernel for a CUDA pool."""
+    _check(q, pool, page_slot, lengths, scale)
     dev = pool.device
     if dev.type == "cpu" or (dev.type == "cuda" and plain_selected()):
         return paged_attention_ref(q.to(dev), pool, page_slot, lengths,
-                                   window)
+                                   window, scale)
     if dev.type != "cuda":
         raise ValueError(f"no paged-attention path for device {dev}")
-    return paged_attention_cuda(q, pool, page_slot, lengths, window)
+    return paged_attention_cuda(q, pool, page_slot, lengths, window, scale)

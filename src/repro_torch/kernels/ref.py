@@ -87,26 +87,33 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def paged_attention_ref(q: torch.Tensor, pool: torch.Tensor,
                         page_slot: torch.Tensor, lengths: torch.Tensor,
-                        window: int = 0):
+                        window: int = 0, scale=None):
     """Partial decode attention over the pages of one pool.
 
     q ``[B, H, hd]``; pool ``[slots, page, 2, KV, hd]`` (any slot stride,
     e.g. one layer of a ``[slots, Lp, page, 2, KV, hd]`` pool);
-    ``page_slot [B, n_pages]`` int32 (``-1`` = skip the page); ``lengths
-    [B]`` int32: token ``t`` is live if ``t < lengths[b]`` and, with a
-    ``window`` > 0, ``t >= lengths[b] - window``. Returns f32
-    ``(acc [B, H, hd], m [B, H], l [B, H])``; a row with no live token has
-    ``m = -1e30``, ``l = 0``, ``acc = 0``."""
+    ``page_slot [B, n_pages]`` int32 (``-1``, or a slot past the pool =
+    skip the page); ``lengths [B]`` int32: token ``t`` is live if ``t <
+    lengths[b]`` and, with a ``window`` > 0, ``t >= lengths[b] - window``.
+    An int8 pool comes with ``scale [slots, page, 2]`` f32, one scale a
+    (token, k/v), and reads as the reference's ``bf16(f32(q) * sc)``.
+    Returns f32 ``(acc [B, H, hd], m [B, H], l [B, H])``; a row with no
+    live token has ``m = -1e30``, ``l = 0``, ``acc = 0``."""
     B, H, hd = q.shape
     n_pages = page_slot.shape[1]
-    page, KV = pool.shape[1], pool.shape[3]
+    slots, page, KV = pool.shape[0], pool.shape[1], pool.shape[3]
     G = H // KV
     ps = page_slot.to(pool.device).long()
-    data = pool[ps.clamp(min=0)]             # [B, n_pages, page, 2, KV, hd]
+    on = (ps >= 0) & (ps < slots)
+    at = torch.where(on, ps, 0)
+    data = pool[at]                          # [B, n_pages, page, 2, KV, hd]
+    if scale is not None:
+        data = (data.to(torch.float32) * scale[at][..., None, None]).to(
+            torch.bfloat16)
     k = data[..., 0, :, :].reshape(B, n_pages * page, KV, hd)
     v = data[..., 1, :, :].reshape(B, n_pages * page, KV, hd)
     tok = torch.arange(n_pages * page, device=pool.device)
-    valid = (ps >= 0).repeat_interleave(page, dim=1)
+    valid = on.repeat_interleave(page, dim=1)
     n = lengths.to(pool.device)[:, None]
     valid &= tok[None, :] < n
     if window > 0:

@@ -11,6 +11,8 @@ paper's fig. 2 pipeline end to end. Without ``--full`` the architecture's
 reduced variant runs. ``--arch mamba2-370m`` (no attention, so no KV
 pools) and ``--arch recurrentgemma-9b`` (RG-LRU blocks and sliding-window
 attention) run their scans through the SSD and RG-LRU kernels.
+``--int8-kv`` keeps the KV pools in int8 with an f32 scale a (token,
+k/v), read by the paged-attention kernel's int8 variant.
 """
 from __future__ import annotations
 
@@ -64,19 +66,22 @@ def _sync(dev: torch.device) -> None:
 def serve(cfg: ModelConfig, params: dict, prompts, *, new: int,
           hbm_fraction: float = 0.5, promote_every: int = 4,
           n_promote: int = 2, forced: Optional[torch.Tensor] = None,
-          max_seq: Optional[int] = None) -> ServeResult:
+          max_seq: Optional[int] = None,
+          kv_dtype: str = "auto") -> ServeResult:
     """Prefill ``prompts`` ``[B, S]``, then ``new - 1`` decode steps, greedy
     (or fed ``forced [B, new - 1]`` instead of the generated tokens:
     teacher forcing), promoting pages every ``promote_every`` steps, on the
     parameters' device. The pools hold ``max_seq`` tokens a sequence
-    (default: the prompt and ``new``, up to whole pages)."""
+    (default: the prompt and ``new``, up to whole pages) in ``kv_dtype``
+    (``"auto"``: the parameters' dtype; or ``"int8"``)."""
     dev = params["embed"].device
     prompts = torch.as_tensor(prompts)
     B, S = prompts.shape
     if max_seq is None:
         max_seq = -(-(S + new) // cfg.page_size) * cfg.page_size
     sc = ServeConfig(max_seq=max_seq, batch_local=B, page_axes=(),
-                     hbm_fraction=hbm_fraction, n_promote=n_promote)
+                     hbm_fraction=hbm_fraction, n_promote=n_promote,
+                     kv_dtype=kv_dtype)
     spec = make_kv_spec(cfg, sc)
     prefill = make_prefill_step(cfg, sc)
     decode = make_decode_step(cfg, sc)
@@ -135,20 +140,19 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.int8_kv:
-        raise NotImplementedError(
-            "int8 KV is not ported yet (ROADMAP item 11.1)")
     cfg, params = build(args.arch, full=args.full, device=args.device)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, (args.requests, args.prompt))
     reset_launch_counts()
     res = serve(cfg, params, prompts.astype(np.int32), new=args.new,
                 hbm_fraction=args.hbm_fraction,
-                promote_every=args.promote_every)
+                promote_every=args.promote_every,
+                kv_dtype="int8" if args.int8_kv else "auto")
     kv = res.state.kv
     steps = args.new - 1
     print(f"arch={cfg.name} requests={args.requests} prompt={args.prompt} "
-          f"new={args.new} kv={cfg.param_dtype} device="
+          f"new={args.new} "
+          f"kv={'int8' if args.int8_kv else cfg.param_dtype} device="
           f"{params['embed'].device}")
     print(f"prefill {res.prefill_s:.3f}s; decode {res.decode_s:.3f}s "
           f"({args.requests * steps / max(res.decode_s, 1e-9):.1f} tok/s, "

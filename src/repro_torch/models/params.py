@@ -97,11 +97,11 @@ def _ssd_defs(cfg: ModelConfig) -> dict:
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.moe is not None:
         raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP item 11.2)")
+            "MoE blocks are not ported yet (ROADMAP module item 4)")
     if cfg.family == "audio" or cfg.enc_dec:
         raise NotImplementedError(
             "the encoder-decoder (whisper) model is not ported yet "
-            "(ROADMAP item 11.2)")
+            "(ROADMAP module item 4)")
 
 
 def block_defs(kind: str, cfg: ModelConfig) -> dict:

@@ -19,7 +19,7 @@ superblock); the reference's training forward reaches no Pallas kernel,
 and neither does the port's.
 
 The reference's MoE, encoder and VLM-prefix blocks are not ported yet
-(ROADMAP item 11.2); :func:`repro_torch.models.params.block_defs` raises
+(ROADMAP module item 4); :func:`repro_torch.models.params.block_defs` raises
 for them.
 """
 from __future__ import annotations

@@ -22,9 +22,16 @@ without attention (mamba2) has no pools at all (``kv=None``). Where every
 attention block is sliding-window, decode reads only the pages of the
 window, and the paged kernel masks the tokens before it.
 
+With ``kv_dtype="int8"`` the pools hold int8 codes and f32 scales a
+(token, k/v) (:mod:`repro_torch.serving.kvpool`): each token's K and V
+are quantized as they are written, the prefill's pages as they are
+copied, and the paged-attention kernel dequantizes as it reads, to the
+reference's ``bf16(f32(q) * sc)``. The prefill's own attention runs on
+the K/V before they are quantized, as the reference's does.
+
 Scope: dense models of attention, RG-LRU and SSD blocks, one card
-(``page_axes=()``), KV in the parameters' dtype. Everything else raises
-``NotImplementedError`` naming its ROADMAP item.
+(``page_axes=()``), KV in the parameters' dtype or int8. Everything else
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -59,7 +66,7 @@ class ServeConfig:
     page_axes: tuple[str, ...] = ()  # one card: pages are not sharded
     hbm_fraction: float = 0.5   # tier-1 capacity as fraction of pages
     n_promote: int = 2
-    kv_dtype: str = "auto"      # "auto" (= param dtype)
+    kv_dtype: str = "auto"      # "auto" (= param dtype) or "int8"
 
 
 class DecodeState(NamedTuple):
@@ -78,17 +85,14 @@ def check_supported(cfg: ModelConfig, sc: ServeConfig) -> None:
     if sc.page_axes:
         raise NotImplementedError(
             "page sharding over several cards is not ported yet (ROADMAP "
-            "item 11.1); use page_axes=()")
-    if sc.kv_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV is not ported yet (ROADMAP item 11.1)")
+            "module item 6); use page_axes=()")
     if cfg.moe is not None:
         raise NotImplementedError("MoE serving is not ported yet (ROADMAP "
-                                  "item 11.1)")
+                                  "module item 4)")
     if cfg.enc_dec or cfg.family == "audio" or cfg.vlm_prefix:
         raise NotImplementedError(
             "encoder-decoder and VLM-prefix serving are not ported yet "
-            "(ROADMAP item 11.1)")
+            "(ROADMAP module item 4)")
 
 
 def _needs_kv(cfg: ModelConfig) -> bool:
@@ -178,12 +182,14 @@ def _decode_attention(x, p, cfg: ModelConfig, pools, index, tables, li,
     v_new = dense(h, p["wv"]).reshape(B, KV, hd)
     q = apply_rope(q, rope)[:, 0]
     k_new = apply_rope(k_new, rope)[:, 0]
-    kvp.write_token_kv(pools[0], (k_new, v_new), index, li)
+    scales = pools[2:] or (None, None)
+    kvp.write_token_kv(pools[0], (k_new, v_new), index, li, scales[0])
     slot1, slot2, live = tables
-    part1 = Partial(*pa.paged_attention(q, pools[0][:, li], slot1, live,
-                                        window))
-    part2 = Partial(*pa.paged_attention(q, pools[1][:, li], slot2, live,
-                                        window))
+    part1, part2 = (
+        Partial(*pa.paged_attention(
+            q, pool[:, li], slot, live, window,
+            scale=None if sc is None else sc[:, li]))
+        for pool, sc, slot in zip(pools[:2], scales, (slot1, slot2)))
     o = combine_partials([part1, part2])           # [B, H, hd] f32
     return dense(o.to(x.dtype).reshape(B, H * hd), p["wo"])
 
@@ -227,7 +233,7 @@ def make_decode_step(cfg: ModelConfig, sc: ServeConfig):
         kv = state.kv
         if kv is not None:
             kv, plan = kvp.alloc_step(kv, spec, cfg_ol, pw)
-            pools = (kv.pool1, kv.pool2)
+            pools = kvp.pools_of(kv, spec)
             kvp.write_back_evicted(pools, plan)
             index = kvp.token_index(plan, kv.lengths, spec, dev)
             tables = _decode_tables(kv, spec, dev)
@@ -295,8 +301,8 @@ def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
                 if pad_s:
                     k = F.pad(k, (0, 0, 0, 0, 0, pad_s))
                     v = F.pad(v, (0, 0, 0, 0, 0, pad_s))
-                kvp.prefill_write((kv.pool1, kv.pool2), kv, spec, layer.li,
-                                  k, v)
+                kvp.prefill_write(kvp.pools_of(kv, spec), kv, spec,
+                                  layer.li, k, v)
             else:
                 st = ex
             if layer.rep is None:

@@ -24,12 +24,22 @@ page-copy kernel (:mod:`repro_torch.kernels.page_gather`), and masked
 writes skip (``-1``) where the reference scatters them to the scratch rows;
 so the scratch rows stay zero here.
 
+In int8 mode (``KVSpec.dtype == "int8"``) each token's K and each its V
+are quantized with one f32 scale apiece, as the reference does:
+``sc = max(max |x|, 1e-30) / 127`` over ``(KV, hd)`` and ``q =
+clip(round(x / sc), -127, 127)``; the scales live in two f32 pools
+beside the data, ``scale1 [hbm_slots + 1, layers, page, 2]`` and
+``scale2 [t2_slots, ...]``, and move with their pages in every copy.
+A read dequantizes to ``bf16(f32(q) * sc)``. Outside int8 mode the scale
+pools are ``[1]`` placeholders. Functions that move data take ``pools``
+as ``(pool1, pool2)``, or ``(pool1, pool2, scale1, scale2)`` in int8
+mode (:func:`pools_of`).
+
 One card only: the page table is not sharded, so the card owns every
-page and each page's tier-2 slot is its flat id; int8 pools are not
-ported (ROADMAP item 11.1). With a read window (``read_pages`` > 0, for
-sliding-window attention) only the pages ``[lo, lo + read_pages)`` of a
-sequence are read, touched, counted as misses and promoted, ``lo`` being
-:func:`read_window_start`.
+page and each page's tier-2 slot is its flat id. With a read window
+(``read_pages`` > 0, for sliding-window attention) only the pages ``[lo,
+lo + read_pages)`` of a sequence are read, touched, counted as misses and
+promoted, ``lo`` being :func:`read_window_start`.
 """
 from __future__ import annotations
 
@@ -48,7 +58,7 @@ from repro_torch.storage.cache_state import CacheState, init_cache
 __all__ = ["KVSpec", "PagedKV", "AllocPlan", "init_paged_kv", "alloc_step",
            "write_back_evicted", "token_index", "write_token_kv", "read_pages",
            "prefill_residency", "prefill_write", "promote_pages",
-           "read_window_start", "n_attn_layers"]
+           "read_window_start", "n_attn_layers", "pools_of", "quantize"]
 
 _I32 = torch.int32
 
@@ -73,7 +83,11 @@ class KVSpec:
     t2_slots: int          # tier-2 capacity (>= pages)
     read_pages: int = 0    # pages visible to decode attention (0 = all)
     window: int = 0        # sliding-window size in tokens (0 = full)
-    dtype: str = "bfloat16"
+    dtype: str = "bfloat16"  # "int8" => per-(token, k/v) scaled quantization
+
+    @property
+    def quantized(self) -> bool:
+        return self.dtype == "int8"
 
     @property
     def total_pages(self) -> int:
@@ -85,6 +99,8 @@ class PagedKV(NamedTuple):
 
     pool1: torch.Tensor      # [hbm_slots + 1, Lp, page, 2, KV, hd]
     pool2: torch.Tensor      # [t2_slots, Lp, page, 2, KV, hd]
+    scale1: torch.Tensor     # [hbm_slots + 1, Lp, page, 2] f32 (int8; or [1])
+    scale2: torch.Tensor     # [t2_slots, Lp, page, 2] f32
     meta: CacheState         # over hbm_slots; tags = flat page id
     page_slot: torch.Tensor  # int32 [B, n_pages] tier-1 slot or -1
     t2_slot: torch.Tensor    # int32 [B, n_pages] tier-2 slot
@@ -107,19 +123,21 @@ class AllocPlan(NamedTuple):
 
 
 def init_paged_kv(spec: KVSpec, seed: int = 0, *, device=None) -> PagedKV:
-    """Empty pools on ``device`` (``None`` = the card); metadata on the
-    host."""
-    if spec.dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV pools are not ported yet (ROADMAP item 11.1)")
+    """Empty pools on ``device`` (``None`` = the card), the scales at 1;
+    metadata on the host."""
     device = resolve_device(device)
     dt = getattr(torch, spec.dtype)
     shape1 = (spec.hbm_slots + 1, spec.layers_per_slot, spec.page_size, 2,
               spec.n_kv, spec.head_dim)
     shape2 = (spec.t2_slots,) + shape1[1:]
+    f32 = dict(dtype=torch.float32, device=device)
+    sc1, sc2 = ((shape1[:4], shape2[:4]) if spec.quantized
+                else ((1,), (1,)))
     return PagedKV(
         pool1=torch.zeros(shape1, dtype=dt, device=device),
         pool2=torch.zeros(shape2, dtype=dt, device=device),
+        scale1=torch.ones(sc1, **f32),
+        scale2=torch.ones(sc2, **f32),
         meta=init_cache(spec.hbm_slots),
         page_slot=torch.full((spec.b_local, spec.n_pages), -1, dtype=_I32),
         t2_slot=torch.arange(spec.total_pages, dtype=_I32).reshape(
@@ -133,6 +151,26 @@ def init_paged_kv(spec: KVSpec, seed: int = 0, *, device=None) -> PagedKV:
         evictions=torch.zeros(1, dtype=_I32),
         writebacks=torch.zeros(1, dtype=_I32),
     )
+
+
+def pools_of(kv: PagedKV, spec: KVSpec) -> tuple:
+    """The pools that move data: ``(pool1, pool2)``, with ``(scale1,
+    scale2)`` after them in int8 mode."""
+    if spec.quantized:
+        return kv.pool1, kv.pool2, kv.scale1, kv.scale2
+    return kv.pool1, kv.pool2
+
+
+def quantize(x: torch.Tensor) -> tuple:
+    """The reference's int8 quantization over the last two axes ``(KV,
+    hd)``: ``(codes int8, scales f32 [...])``, the scale ``max(amax,
+    1e-30) / 127`` as a division, the code ``round(x / sc)`` (half to
+    even) clipped to ``[-127, 127]``."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=(-2, -1))
+    sc = torch.clamp(amax, min=1e-30) / 127.0
+    q = torch.clamp(torch.round(xf / sc[..., None, None]), -127, 127)
+    return q.to(torch.int8), sc
 
 
 def read_window_start(lengths: torch.Tensor, spec: KVSpec) -> torch.Tensor:
@@ -248,18 +286,19 @@ def alloc_step(kv: PagedKV, spec: KVSpec, cfg_ol: ol.OLConfig,
 
 def write_back_evicted(pools, plan: AllocPlan) -> bool:
     """Copy every dirty evicted page down to tier 2, whole slots (all
-    layers) at once, in one page-copy launch; returns whether it launched.
+    layers) at once, in one page-copy launch (and one more for the slots'
+    scales in int8 mode); returns whether it launched.
 
     The reference writes back layer by layer inside the layer loop, each
     layer before that layer's token lands. One copy before the loop moves
     the same bytes: ``alloc_step`` pins each freshly allocated slot, so no
     sequence writes this step's token into a slot another sequence evicts.
     """
-    pool1, pool2 = pools
     live = plan.writeback & (plan.evict_slot >= 0)
     if not bool(live.any()):
         return False
-    pg.page_copy(pool2, pool1, plan.evict_t2[live], plan.evict_slot[live])
+    for lo, up in zip(pools[0::2], pools[1::2]):  # data, then scales
+        pg.page_copy(up, lo, plan.evict_t2[live], plan.evict_slot[live])
     return True
 
 
@@ -274,12 +313,19 @@ def token_index(plan: AllocPlan, lengths: torch.Tensor, spec: KVSpec,
 
 
 def write_token_kv(pool1: torch.Tensor, kv_new, index: tuple,
-                   li: int) -> None:
+                   li: int, scale1=None) -> None:
     """Write this step's K/V of layer ``li`` (``k_new``, ``v_new``: [B, KV,
     hd]) into the current tier-1 pages at ``index`` (:func:`token_index`),
-    in place."""
+    in place; with ``scale1`` (int8 mode) quantized, each token's K and V
+    scale beside it."""
     slot, off = index
-    pool1[:, li][slot, off] = torch.stack(kv_new, dim=1).to(pool1.dtype)
+    new = torch.stack(kv_new, dim=1)                   # [B, 2, KV, hd]
+    if scale1 is None:
+        pool1[:, li][slot, off] = new.to(pool1.dtype)
+        return
+    q, sc = quantize(new)
+    pool1[:, li][slot, off] = q
+    scale1[:, li][slot, off] = sc
 
 
 def read_pages(pools, kv: PagedKV, spec: KVSpec, li: int):
@@ -294,8 +340,11 @@ def read_pages(pools, kv: PagedKV, spec: KVSpec, li: int):
 
     A window that runs past the last page masks the pages past it; the
     reference clips their indices to the last page instead, which reads
-    that page more than once (ROADMAP faults item (h))."""
-    pool1, pool2 = pools
+    that page more than once (ROADMAP faults item (h)).
+
+    In int8 mode (four pools) K and V come out dequantized as the
+    reference's are, ``bf16(f32(q) * sc)``."""
+    pool1, pool2 = pools[:2]
     B, NP, P = spec.b_local, spec.n_pages, spec.page_size
     R = spec.read_pages if spec.read_pages > 0 else NP
     dev = pool1.device
@@ -306,8 +355,15 @@ def read_pages(pools, kv: PagedKV, spec: KVSpec, li: int):
     p_idx = p_idx.clamp(max=NP - 1).long()
     slot = torch.gather(kv.page_slot.to(dev), 1, p_idx).long()
     t2 = torch.gather(kv.t2_slot.to(dev), 1, p_idx).long()
-    data = torch.where((slot >= 0)[..., None, None, None, None],
+    res = slot >= 0
+    data = torch.where(res[..., None, None, None, None],
                        pool1[slot.clamp(min=0), li], pool2[t2, li])
+    if len(pools) == 4:
+        scale1, scale2 = pools[2:]
+        sc = torch.where(res[..., None, None], scale1[slot.clamp(min=0), li],
+                         scale2[t2, li])
+        data = (data.to(torch.float32) * sc[..., None, None]).to(
+            torch.bfloat16)
     k = data[..., 0, :, :].reshape(B, R * P, spec.n_kv, spec.head_dim)
     v = data[..., 1, :, :].reshape(B, R * P, spec.n_kv, spec.head_dim)
     tok = p_idx[..., None] * P + torch.arange(P, device=dev)  # [B, R, P]
@@ -364,15 +420,22 @@ def prefill_write(pools, kv: PagedKV, spec: KVSpec, li: int,
                   k: torch.Tensor, v: torch.Tensor) -> None:
     """Write one layer's prefill KV (``[B, S, KV, hd]``, S a page multiple)
     into both pools with two page-copy launches: every page into
-    tier 2, the resident ones into tier 1 too."""
-    pool1, pool2 = pools
+    tier 2, the resident ones into tier 1 too. In int8 mode the pages are
+    quantized first and their scales copied alike (two launches more)."""
     B, S = k.shape[:2]
     npg = S // spec.page_size
-    data = torch.stack([k, v], dim=2).to(pool1.dtype).reshape(
+    data = torch.stack([k, v], dim=2).reshape(
         B * npg, spec.page_size, 2, spec.n_kv, spec.head_dim)
+    if len(pools) == 4:
+        srcs = quantize(data)
+    else:
+        srcs = (data.to(pools[0].dtype),)
     src = torch.arange(B * npg, dtype=_I32)
-    pg.page_copy(pool2[:, li], data, kv.t2_slot[:, :npg].reshape(-1), src)
-    pg.page_copy(pool1[:, li], data, kv.page_slot[:, :npg].reshape(-1), src)
+    t2 = kv.t2_slot[:, :npg].reshape(-1)
+    t1 = kv.page_slot[:, :npg].reshape(-1)
+    for (lo, up), x in zip(zip(pools[0::2], pools[1::2]), srcs):
+        pg.page_copy(up[:, li], x, t2, src)
+        pg.page_copy(lo[:, li], x, t1, src)
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +447,7 @@ def promote_pages(kv: PagedKV, spec: KVSpec, n_promote: int = 2) -> PagedKV:
     """Promote up to ``n_promote`` readable-but-nonresident pages into
     free tier-1 slots ("prefetching is performed only if there are empty
     slots"): the choice on the host, the copies of whole slots in one
-    page-copy launch."""
+    page-copy launch (and one more for their scales in int8 mode)."""
     cand = (_readable(kv, spec) & (kv.page_slot < 0)).reshape(-1)
     tags, valid, dirty, freq, ts = (x.clone() for x in kv.meta)
     page_slot = kv.page_slot.clone().reshape(-1)
@@ -404,7 +467,9 @@ def promote_pages(kv: PagedKV, spec: KVSpec, n_promote: int = 2) -> PagedKV:
         freq[slot], ts[slot] = 1, t
         page_slot[nxt] = slot
     if dst:
-        pg.page_copy(kv.pool1, kv.pool2, torch.tensor(dst, dtype=_I32),
-                  torch.tensor(src, dtype=_I32))
+        di, si = (torch.tensor(x, dtype=_I32) for x in (dst, src))
+        pools = pools_of(kv, spec)
+        for lo, up in zip(pools[0::2], pools[1::2]):
+            pg.page_copy(lo, up, di, si)
     return kv._replace(meta=CacheState(tags, valid, dirty, freq, ts),
                        page_slot=page_slot.reshape(kv.page_slot.shape))

@@ -23,7 +23,9 @@ by ``params_from_numpy``:
 - the one-launch whole-slot write-back against the reference's per-layer
   write-back, pools equal bit for bit over 48 steps with evictions;
 - the inclusion invariant of ``tests/test_serving.py``;
-- ``NotImplementedError`` for what the slice does not serve.
+- ``NotImplementedError`` for what the slice does not serve, and int8 KV
+  pools served (their parity with the reference is
+  ``tests/test_torch_int8_kv.py``).
 """
 import dataclasses
 
@@ -352,11 +354,9 @@ def test_one_launch_write_back_and_inclusion(hbm_fraction):
 
 @pytest.mark.parametrize("name,over,match", [
     ("mixtral-8x22b", {}, "MoE"),
-    ("recurrentgemma-9b", {"kv_dtype": "int8"}, "int8"),
     ("mamba2-370m", {"page_axes": ("model",)}, "several cards"),
     ("whisper-tiny", {}, "encoder-decoder"),
     ("paligemma-3b", {}, "VLM"),
-    ("stablelm-3b", {"kv_dtype": "int8"}, "int8"),
     ("stablelm-3b", {"page_axes": ("model",)}, "several cards"),
 ])
 def test_unsupported_raises(name, over, match):
@@ -368,14 +368,40 @@ def test_unsupported_raises(name, over, match):
         teng.make_prefill_step(cfg, sc)
 
 
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "stablelm-3b"])
+def test_int8_kv_serves(name, rng):
+    """``kv_dtype="int8"`` (refused before int8 pools were ported): the
+    steps build, and a short serve keeps int8 pools with f32 scales of
+    the pools' slot, layer and page shape, finite logprobs and the tier
+    traffic of the same serve with f32 pools (page traffic depends on the
+    lengths alone)."""
+    _, cfg = _cfgs(name)
+    params = tserve.build(name, seed=1, device="cpu")[1]
+    params = jax.tree.map(lambda x: x.float(), params)
+    prompts = rng.integers(0, cfg.vocab, (2, 20)).astype(np.int32)
+    runs = {kd: tserve.serve(cfg, params, prompts, new=10, hbm_fraction=0.4,
+                             kv_dtype=kd) for kd in ("int8", "auto")}
+    kv, ref = runs["int8"].state.kv, runs["auto"].state.kv
+    assert kv.pool1.dtype == kv.pool2.dtype == torch.int8
+    assert kv.scale1.dtype == torch.float32
+    assert tuple(kv.scale1.shape) == tuple(kv.pool1.shape[:4])
+    assert tuple(kv.scale2.shape) == tuple(kv.pool2.shape[:4])
+    assert ref.pool1.dtype == torch.float32 and tuple(ref.scale1.shape) == (1,)
+    assert np.isfinite(runs["int8"].logprobs).all()
+    for f in ("page_slot", "lengths", "t1_reads", "t2_reads", "evictions"):
+        assert torch.equal(getattr(kv, f), getattr(ref, f)), f
+
+
 def test_launcher_runs_on_cpu(capsys):
     tserve.main(["--arch", "stablelm-3b", "--device", "cpu", "--requests",
                  "2", "--prompt", "20", "--new", "6"])
     out = capsys.readouterr().out
     assert "kernel launches: {'flash_attention': 0, 'paged_attention': 0, " \
            "'page_copy': 0, 'ssd_scan': 0, 'rglru_scan': 0}" in out
-    with pytest.raises(NotImplementedError, match="int8"):
-        tserve.main(["--int8-kv", "--device", "cpu"])
+    tserve.main(["--int8-kv", "--device", "cpu", "--arch", "stablelm-3b",
+                 "--requests", "2", "--prompt", "20", "--new", "6"])
+    out = capsys.readouterr().out
+    assert " kv=int8 " in out and "kernel launches:" in out
 
 
 def test_launcher_runs_attention_free_model_on_cpu(capsys):
