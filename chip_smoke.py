@@ -9,13 +9,15 @@ calls, each with the launch counts set to 0 just before it and read just
 after:
 
 1. build (ptxas's registers and spills of the flash and paged kernels;
-   a spill in the tensor-core flash kernel at hd 128 or 256 fails);
+   a spill in the tensor-core flash kernel at hd 64, 128 or 256 fails);
 2. the bound's timing probes; 3. the cache-scan kernel against
    its plain version, every policy x prefetch;
 4. ``simulate`` on the §V worked example;
 5. ``simulate``'s stages on the full-size deployment (16 shards x 16,384
-   lines, 2^22 requests), and the cache-scan kernel against its plain
-   version on the first 2^17 requests of its rows;
+   lines, 2^22 requests), and the cache-scan kernel's masked mode against
+   its plain version on requests 98,304 to 131,071 of its rows, from the
+   carry the kernel left after the first 98,304 (each row's cache fills
+   and begins to evict in that window);
 6. the reuse-distance kernel against its plain version at small shapes,
    and on general rows (prev not a previous-occurrence array, valid not
    a prefix);
@@ -29,8 +31,10 @@ after:
 9. the sweep's megabatch at full width: 16 points, 8 cache signatures,
    one cache-scan launch of 128 rows, and the cache-scan kernel against
    its plain version on those rows' first 2^15 steps;
-10. serving at full width: mistral-nemo-12b in bf16 (weights from seed 0),
-   8 requests x 3,072-token prompts, prefill and 257 greedy decode steps
+10. serving at full width: mistral-nemo-12b in bf16 (weights from seed 0)
+   at 20 of its 40 layers (the depth cut keeps the smoke inside its time
+   limit), 8 requests x 3,072-token prompts, prefill and 257 greedy
+   decode steps
    over the paged two-tier KV cache (tier 1 at half the pages, promotion
    every 4 steps); the flash-attention, paged-attention and page-copy
    kernels against their plain versions on inputs captured from that run;
@@ -89,6 +93,25 @@ after:
    bar), the plain path teacher-forced within phase 10's bars with two
    planted faults above them (the v scale read for k; the scales one
    slot off), and page copy on int8 slots and scale rows, byte for byte.
+17. whisper-tiny served at full width as phase 10: 32 requests of 1,500
+   stub frame embeddings (the encoder's 4 layers of full attention, once
+   at prefill) and 128-token decoder prompts, 257 decode steps, each
+   decoder layer's cross-attention over its stored keys and values; the
+   encoder's, the cross- and the causal self-attention's flash calls
+   against the plain version; a planted fault (layer 0's stored
+   cross-attention keys and values zeroed) above the bar.
+18. paligemma-3b served as phase 10: 16 requests of 256 stub patch
+   embeddings (a bidirectional prefix) and 256 text tokens; the
+   prefix-LM flash call against the plain version, which without the
+   prefix mask must fail that bar; a planted fault (the prefix mask
+   dropped at prefill) above the serve's bar.
+19. mixtral-8x22b at full width and 8 of its 56 layers (20.4 B
+   parameters; all 56 do not fit one card) with phase 10's shape: top-2
+   of 8 experts behind the 4,096-token window (33 read pages > 27, so the
+   window never clips); the prefill's dropped-slot fraction; bars on the
+   median over steps and sequences (routing flips at near-ties move a
+   few tokens' states a long way), a planted fault (top-1 routing) above
+   them.
 
 It prints:
 
@@ -100,7 +123,9 @@ It prints:
   a loop of wrapper calls, and from a CUDA graph of the kernel's launches
   alone as ``ms_graph``; the cache scan's chunked replay under
   ``chunked_`` keys; paged attention's int8 variant under ``int8_``
-  keys);
+  keys; flash, paged attention and page copy at phases 17-19's shapes
+  under ``whisper_enc_`` / ``whisper_cross_`` / ``whisper_self_`` (flash)
+  or ``whisper_``, ``vlm_prefix_`` and ``moe_`` keys);
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits nonzero. Without CUDA, or without the
@@ -142,7 +167,13 @@ OPS_PROBE = 4
 VICTIM_ARRAYS = {"ws": 2, "lru": 1, "lfu": 1, "random": 0}
 DRAWS = {"ws": 1, "lru": 0, "lfu": 0, "random": 1}
 PUBLISHED_LAM_EFF = 86.6  # §V worked example
-PREFIX = 2**17  # full-size requests per row held against the plain version
+# Phase 5 holds the kernel against the plain version on WINDOW requests of
+# each full-size row from the masked mode's carried state at request
+# WINDOW_START: every row's 16,384 lines fill (its 16,384th distinct page
+# arrives between requests 103,071 and 107,078) and evictions begin
+# inside the window. (A prefix of 2^17 requests from an empty cache held
+# the same events, but its plain per-step loop took 180-270 s.)
+WINDOW_START, WINDOW = 3 * 2**15, 2**15
 # Megabatch steps per row held against the plain version. Its rows fill
 # their 16,384 lines near step 105,000, so this prefix covers the fill
 # only; eviction under each policy and beta is held in phases 3 and 7,
@@ -151,9 +182,15 @@ PREFIX = 2**17  # full-size requests per row held against the plain version
 # would take a fifth of the smoke's time.
 MEGA_PREFIX = 2**15
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
-# Phase 10: the full-width serving cell, and its tolerances.
-SERVE = dict(arch="mistral-nemo-12b", full=True, requests=8, prompt=3072,
-             new=258, hbm_fraction=0.5, promote_every=4)
+# The serves' shape: 8 requests of 3,072-token prompts, 257 decode steps,
+# tier 1 at half the pages, promotion every 4 steps, at full width.
+SERVE_SHAPE = dict(full=True, requests=8, prompt=3072, new=258,
+                   hbm_fraction=0.5, promote_every=4)
+# Phase 10: mistral-nemo-12b at full width and 20 of its 40 layers (the
+# depth cut keeps the smoke inside its time limit beside phases 17-19;
+# phase 16's tier state is held against this run's, so it takes the same
+# depth), and its tolerances.
+SERVE = dict(SERVE_SHAPE, arch="mistral-nemo-12b", layers=20)
 FLASH_TOL = 2e-2     # bf16 output, the bar of tests/test_kernels.py
 # Element by element, the flash kernel's bf16 output against the plain
 # version's: both round f32 results that differ only in summation order,
@@ -173,8 +210,11 @@ LOGPROB_TOL = 0.5
 # (the tier-2 partial dropped; one tier-2 page skipped) must exceed it.
 HIDDEN_TOL = 0.05
 # Phases 11 and 12: the recurrent models at full width, served as phase 10.
-SSD_SERVE = dict(SERVE, arch="mamba2-370m")
-RG_SERVE = dict(SERVE, arch="recurrentgemma-9b")
+SSD_SERVE = dict(SERVE_SHAPE, arch="mamba2-370m")
+# recurrentgemma-9b keeps all 38 layers: at 20 (6 attention and 14 RG-LRU
+# layers) its planted fault (b) moved the hidden state by 0.0467 on an
+# H100, under the 0.05 bar (PERF.md §4).
+RG_SERVE = dict(SERVE_SHAPE, arch="recurrentgemma-9b")
 # The SSD kernel's f32 results (the final state; y from f32 inputs)
 # against the plain version's, over the largest magnitude. Both sum the
 # within-chunk decay dt A in f32; at mamba2's chunk of 256 a chunk's sum
@@ -225,6 +265,35 @@ CONF_PLAN = dict(spec=dict(kind="irm", n_requests=2**20, n_pages=2**20,
                  k_threads=(1, 4, 16, 64))
 # Phase 16: phase 10's serve with int8 KV pools.
 INT8_SERVE = dict(SERVE)
+# Phases 17-19: the other families at full width, served as phase 10
+# (bf16 weights from seed 0, tier 1 at half the pages, promotion every 4
+# steps, 257 decode steps). Whisper-tiny: 32 requests of 1,500 stub frames
+# and 128-token decoder prompts (385 positions of its 448). Paligemma-3b:
+# 16 requests of 256 patch embeddings and 256 text tokens. Mixtral-8x22b at
+# full width and 8 of its 56 layers: 20.4 B parameters, 40.9 GB in bf16
+# (all 56 layers, 141 B, do not fit one 80 GB card), phase 10's shape.
+# Each "hidden_tol" is the phase's bar on the final hidden state, kernel
+# run vs plain run, set from the noise floor the phase measures (the plain
+# path with blockwise prefill attention); every planted fault must exceed
+# it.
+WHISPER_SERVE = dict(SERVE_SHAPE, arch="whisper-tiny", requests=32, prompt=128,
+                     tag="whisper serve", hidden_tol=HIDDEN_TOL,
+                     key="whisper", flash_keys=dict(
+                         enc="whisper_enc", cross="whisper_cross",
+                         self="whisper_self"))
+VLM_SERVE = dict(SERVE_SHAPE, arch="paligemma-3b", requests=16, prompt=256,
+                 tag="vlm serve", hidden_tol=HIDDEN_TOL, key="vlm_prefix",
+                 flash_keys=dict(self="vlm_prefix"))
+# Mixtral's bars hold the median over steps and sequences: a reordered
+# sum flips the routing of a few tokens at near-ties, which moves their
+# hidden states by up to 0.8 and their logprobs by up to 3 nats (more at
+# the prefill's capacity drops, where a flip shifts the queue positions
+# behind it), but the median stays at the noise floor (0.011 for the
+# hidden state, 0.026 nats on an H100, PERF.md §2). Bars: 0.05 (phase
+# 10's) and 0.1 nats; top-1 routing moved the median hidden state by 1.01.
+MOE_SERVE = dict(SERVE_SHAPE, arch="mixtral-8x22b", layers=8, tag="moe serve",
+                 hidden_tol=HIDDEN_TOL, logprob_tol=0.1, quantile=0.5,
+                 key="moe", flash_keys=dict(self="moe"))
 
 
 def log(msg: str) -> None:
@@ -277,27 +346,32 @@ def _paged_inputs(call) -> tuple:
             live.to(dev, torch.int32).contiguous(), window, *scale)
 
 
-def filled_lines(row: np.ndarray, n_lines: int) -> int:
-    """Lines the lookups of one row's steps scan: a step scans the lines
+def _seen(row: np.ndarray) -> np.ndarray:
+    """Distinct pages of ``row`` before each step."""
+    new = np.zeros(len(row), np.int64)
+    new[np.unique(row, return_index=True)[1]] = 1
+    return np.cumsum(new) - new
+
+
+def filled_lines(row: np.ndarray, n_lines: int, start: int = 0) -> int:
+    """Lines the lookups of one row's steps from ``start`` on scan (the
+    steps before ``start`` only fill the cache): a step scans the lines
     filled before it. No line is evicted before the cache is full, so until
     then the fill is the number of distinct pages the row has seen."""
-    new = np.zeros(len(row), np.int64)
-    new[np.unique(row, return_index=True)[1]] = 1
-    seen = np.cumsum(new) - new
-    return int(np.minimum(seen, n_lines).sum())
+    return int(np.minimum(_seen(row)[start:], n_lines).sum())
 
 
-def filled_at_passes(row: np.ndarray, n_lines: int, K: int) -> int:
-    """Lines the look-ahead passes of one row scan: the pass before step
-    ``t0`` (every ``K``-th step) scans the lines filled before it."""
-    new = np.zeros(len(row), np.int64)
-    new[np.unique(row, return_index=True)[1]] = 1
-    seen = np.cumsum(new) - new
-    return int(np.minimum(seen[::K], n_lines).sum())
+def filled_at_passes(row: np.ndarray, n_lines: int, K: int,
+                     start: int = 0) -> int:
+    """Lines the look-ahead passes of one row's steps from ``start`` on
+    scan: the pass before step ``t0`` (every ``K``-th step from ``start``)
+    scans the lines filled before it."""
+    return int(np.minimum(_seen(row)[start::K], n_lines).sum())
 
 
 def bound(policies, out: dict, pages: np.ndarray, n_lines: int, W: int,
-          plan, chain_ms: float, walker_ms: float, rates: dict) -> dict:
+          plan, chain_ms: float, walker_ms: float, rates: dict,
+          start: int = 0) -> dict:
     """Least time the card could take for this run's work, term by term
     (``policies``: one policy for every row, or one a row; ``plan``: the
     launch's ``cache_scan.Plan``). The terms of the look-ahead design, of
@@ -326,8 +400,11 @@ def bound(policies, out: dict, pages: np.ndarray, n_lines: int, W: int,
     line a step) and ``serial_chain_ms`` (two block barriers around one
     dependent L2 load a step). ``bytes`` names the byte terms,
     ``operations`` the others (the chain is a chain of dependent
-    operations)."""
+    operations). With ``start``, the launch took the steps from ``start``
+    on of ``pages``' rows, resuming from the state the steps before left.
+    """
     B, L = pages.shape
+    L -= start
     if isinstance(policies, str):
         policies = [policies] * B
     evictions = out["evictions"].tolist()
@@ -336,8 +413,8 @@ def bound(policies, out: dict, pages: np.ndarray, n_lines: int, W: int,
     for row, policy, ev in zip(pages, policies, evictions):
         key = row.tobytes()
         if key not in fills:
-            fills[key] = (filled_lines(row, n_lines),
-                          filled_at_passes(row, n_lines, plan.K))
+            fills[key] = (filled_lines(row, n_lines, start),
+                          filled_at_passes(row, n_lines, plan.K, start))
         scanned, passed = fills[key]
         ev_lines = ev * n_lines
         victims = 4 * VICTIM_ARRAYS[policy] * ev_lines
@@ -361,12 +438,14 @@ def bound(policies, out: dict, pages: np.ndarray, n_lines: int, W: int,
 
 
 def cache_scan_bound(policies, out: dict, pages: np.ndarray, cfg, W: int,
-                     rates: dict) -> dict:
-    """:func:`bound` of a cache-scan launch over ``pages``' rows, with its
-    plan and its two step probes timed here on the launch's shapes."""
+                     rates: dict, start: int = 0) -> dict:
+    """:func:`bound` of a cache-scan launch over ``pages``' rows (from
+    ``start`` on), with its plan and its two step probes timed here on the
+    launch's shapes."""
     from repro_torch.kernels import cache_scan as cs
     from repro_torch.kernels import probe
     B, L = pages.shape
+    L -= start
     plan = cs.cache_scan_plan(cfg, W, B)
     dev = torch.device("cuda")
     chain = probe.chain_step_ms(dev, n_rows=B, threads=plan.threads,
@@ -374,7 +453,7 @@ def cache_scan_bound(policies, out: dict, pages: np.ndarray, cfg, W: int,
     walker = probe.walker_step_ms(dev, n_rows=B, threads=plan.threads,
                                   steps=L, K=plan.K, n_lines=cfg.n_lines)
     return dict(bound(policies, out, pages, cfg.n_lines, W, plan, chain,
-                      walker, rates), plan=plan._asdict())
+                      walker, rates, start), plan=plan._asdict())
 
 
 def _largest(terms: dict) -> dict:
@@ -519,14 +598,16 @@ def phase_build():
             f"loads in bytes): " + "; ".join(
                 f"{f['name']} {f['registers']}, {f['spill_stores']} / "
                 f"{f['spill_loads']}" for f in fns))
-    # The tensor-core flash kernel at mistral's and recurrentgemma's head
-    # dims: both must be in the log, and neither may spill.
+    # The tensor-core flash kernel at the served models' head dims (64:
+    # whisper; 128: mistral, mixtral; 256: recurrentgemma, paligemma): each
+    # must be in the log, and none may spill.
     tc = {f["name"]: f for f in logs[fa.SOURCE]
-          if f["name"] in ("tc<128>", "tc<256>")
+          if f["name"] in ("tc<64>", "tc<128>", "tc<256>")
           and f["registers"] is not None}
-    if len(tc) != 2:
+    if len(tc) != 3:
         raise AssertionError(f"ptxas's log of {fa.SOURCE.name} does not "
-                             f"report both tc<128> and tc<256>: {sorted(tc)}")
+                             f"report tc<64>, tc<128> and tc<256>: "
+                             f"{sorted(tc)}")
     spilled = [n for n, f in tc.items()
                if f["spill_stores"] + f["spill_loads"]]
     if spilled:
@@ -705,8 +786,8 @@ def phase_full_size(rates: dict) -> dict:
     from repro_torch.sim.engine import (
         _assemble_counters, fault_owner, stream_for_spec)
     from repro_torch.storage.tiered_store import (
-        StreamStats, correct_padded_stats, partition_streams,
-        stream_window_ids)
+        StreamStats, correct_padded_stats, init_stream_carry,
+        partition_streams, stream_window_ids, tree_map)
     spec = full_size_spec()
     cfg = spec.store
     t0 = time.perf_counter()
@@ -765,32 +846,63 @@ def phase_full_size(rates: dict) -> dict:
         f"response_s={rep.response_s:.6g}")
 
     # Kernel against the plain version at the main path's widths (16 rows,
-    # 16,384 lines, 32 windows) on the first PREFIX requests of each row,
-    # binned into 32 equal windows: every row fills its cache and evicts
-    # in the prefix, and each of the block's 1,024 threads loops over 16
-    # lines. (The plain version's per-step loop over the whole rows would
-    # take most of the run's time limit.)
-    P = PREFIX
-    pre = (cfg, args[1], args[2], args[3][:, :P].contiguous(),
-           args[4][:, :P].contiguous(),
-           torch.as_tensor(np.tile(stream_window_ids(P, W), (B, 1)),
-                           device=dev))
-    pk_ms, pout = cuda_ms(lambda: cs.cache_scan_cuda(*pre, n_windows=W))
-    pp_ms, want = cuda_ms(lambda: cs.cache_scan_plain(*pre, n_windows=W))
-    err = compare(pout, want, f"full-size rows, first {P} requests")
-    if not (pout["evictions"] > 0).all():
-        raise AssertionError("a row never evicted in the compared prefix")
-    pre_b = cache_scan_bound("ws", pout, sh_pages[:, :P], cfg, W, rates)
-    log(f"[full size, kernel vs plain] {B} rows x first {P} requests, "
-        f"n_lines={cfg.n_lines}, {W} windows, ws: equal (tolerance 0: "
-        f"integers exact, f32 bit for bit); kernel {pk_ms:.1f} ms, plain "
-        f"{pp_ms:.1f} ms, {fmt_bound(pre_b)}; evictions/row "
-        f"{int(pout['evictions'].min())}..{int(pout['evictions'].max())}")
+    # 16,384 lines, 32 windows), in the masked mode from a carried state:
+    # the kernel takes each row's first WINDOW_START requests from a cold
+    # carry, then the kernel and the plain version each take the next
+    # WINDOW from that carry, every carry leaf compared. The caches fill
+    # and begin to evict inside the window.
+    S0, P = WINDOW_START, WINDOW
+    ids = stream_window_ids(S0 + P, W)
+
+    def cut(lo, hi):
+        return (args[3][:, lo:hi].contiguous(), args[4][:, lo:hi].contiguous(),
+                torch.as_tensor(np.tile(ids[lo:hi], (B, 1)), device=dev))
+    hyper = cs.per_row(cfg.hyper(), B, dev)
+    carry = cs.masked_cache_scan_cuda(
+        cfg, hyper, *init_stream_carry(cfg, B, n_windows=W, device=dev),
+        *cut(0, S0), n_windows=W)
+    win = cut(S0, S0 + P)
+    mine = tree_map(torch.clone, carry)
+    pk_ms, (ks, ka) = cuda_ms(lambda: cs.masked_cache_scan_cuda(
+        cfg, hyper, *mine, *win, n_windows=W))
+    pp_ms, (ps, pa_) = cuda_ms(lambda: cs.masked_cache_scan_plain(
+        cfg, hyper, *carry, *win, n_windows=W))
+    err = 0.0
+    for i, (x, y) in enumerate(zip(cs.carry_leaves(ks, ka),
+                                   cs.carry_leaves(ps, pa_))):
+        same = (torch.equal(x.view(torch.int32), y.view(torch.int32))
+                if y.dtype == torch.float32 else torch.equal(x, y))
+        if not same:
+            raise AssertionError(f"full-size rows, masked window: kernel != "
+                                 f"plain in carry leaf {i}")
+        err = max(err, float((x.double() - y.double()).abs().max()))
+    fill0 = carry[0].cache.valid.sum(1)
+    fill1 = ks.cache.valid.sum(1)
+    ev = ka.evictions - carry[1].evictions
+    if not ((fill0 < cfg.n_lines).all() and (fill1 == cfg.n_lines).all()
+            and (ev > 0).all()):
+        raise AssertionError(
+            f"the window does not hold every row's fill and first "
+            f"evictions: filled lines {fill0.tolist()} -> {fill1.tolist()}, "
+            f"evictions {ev.tolist()}")
+    pre_b = cache_scan_bound(
+        "ws", dict(evictions=ev, misses=ka.misses - carry[1].misses),
+        sh_pages[:, :S0 + P], cfg, W, rates, start=S0)
+    log(f"[full size, kernel vs plain] {B} rows x requests {S0}..{S0 + P - 1}"
+        f" in the masked mode, from the carry the kernel left after the "
+        f"first {S0}: n_lines={cfg.n_lines}, {W} windows, ws; filled lines "
+        f"at the window's start {int(fill0.min())}..{int(fill0.max())}, at "
+        f"its end {int(fill1.min())}..{int(fill1.max())}; every carry leaf "
+        f"equal (tolerance 0: integers exact, f32 bit for bit, the key); "
+        f"kernel {pk_ms:.1f} ms, plain {pp_ms:.1f} ms, {fmt_bound(pre_b)}; "
+        f"evictions/row in the window {int(ev.min())}..{int(ev.max())}")
+    del mine, ks, ka, ps, pa_, carry
     return dict(counters=ctr, report=rep, rows=sh_pages, launches=launches,
                 ms=pk_ms, plain_ms=pp_ms, main_tier1_stage_s=t2 - t1,
                 max_abs_err=err, **pre_b,
-                shape=f"{B}x{P} (first {P} requests of the main path's "
-                      f"rows), n_lines={cfg.n_lines}, n_windows={W}, ws",
+                shape=f"{B}x{P} (requests {S0}..{S0 + P - 1} of the main "
+                      f"path's rows, masked mode from the carried state), "
+                      f"n_lines={cfg.n_lines}, n_windows={W}, ws",
                 main_ms=k_ms, main_bound_ms=main_b["bound_ms"],
                 main_bound_by=main_b["bound_by"],
                 main_bound_terms=main_b["bound_terms"],
@@ -1140,21 +1252,42 @@ def _with_hidden(run_fn):
     return res, torch.stack(hidden)
 
 
-def _hidden_err(h, ref) -> float:
+def _hidden_err(h, ref, q=None) -> float:
     """Largest ``|h - ref| / |ref|`` of one sequence's hidden state at one
-    step, over the steps both runs made."""
+    step, over the steps both runs made (with ``q``, its ``q``-quantile
+    over those steps and sequences)."""
     n = min(len(h), len(ref))
-    return float(((h[:n] - ref[:n]).norm(dim=-1)
-                  / ref[:n].norm(dim=-1)).max())
+    e = (h[:n] - ref[:n]).norm(dim=-1) / ref[:n].norm(dim=-1)
+    return float(e.max() if q is None else torch.quantile(e.flatten(), q))
 
 
-def _flash_bound(q, k, window=None) -> dict:
-    """Causal (sliding-window) GQA attention on q ``[B, H, S, hd]``: 4
+def _lp_err(lp, ref, q=None) -> float:
+    """Largest ``|lp - ref|`` of the logprobs over the steps both runs made
+    (with ``q``, its ``q``-quantile)."""
+    n = min(lp.shape[1], ref.shape[1])
+    e = np.abs(lp[:, :n] - ref[:, :n])
+    return float(e.max() if q is None else np.quantile(e, q))
+
+
+def _visible_pairs(Sq: int, Skv: int, causal: bool = True, window=None,
+                   prefix_len: int = 0) -> int:
+    """(query, key) pairs the mask lets through, for one head: all of
+    them without ``causal``; else key j for query i where i - window < j
+    <= i, or j < prefix_len."""
+    if not causal:
+        return Sq * Skv
+    w = window or Skv
+    return sum(min(i + 1, w) + max(0, min(prefix_len, i + 1 - w))
+               + max(0, prefix_len - (i + 1)) for i in range(Sq))
+
+
+def _flash_bound(q, k, window=None, causal=True, prefix_len=0) -> dict:
+    """GQA attention on q ``[B, H, Sq, hd]``, k ``[B, KV, Skv, hd]``: 4
     flops a visible (query, key) pair and head dim (QK^T and PV) at the
     bf16 tensor-core rate; q, k, v read once and the output written once
     at HBM's rate."""
     B, H, S, hd = q.shape
-    pairs = sum(min(i + 1, window or S) for i in range(S))
+    pairs = _visible_pairs(S, k.shape[2], causal, window, prefix_len)
     flops = 4 * B * H * pairs * hd
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
     return dict(_largest(dict(bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
@@ -1195,6 +1328,25 @@ def _copy_bound(n_rows: int, row_bytes: int) -> dict:
                               / HBM_BYTES_PER_S)), bytes=2 * n_rows * row_bytes)
 
 
+def _build_serve(S: dict, dev):
+    """A serve's configuration at full width, its depth cut to
+    ``S["layers"]`` where given, and random bf16 parameters from seed 0."""
+    import dataclasses
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.params import init_params
+    cfg = get_config(S["arch"])
+    if S.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=S["layers"])
+    return cfg, init_params(cfg, 0, dev)
+
+
+def _depth(cfg, S: dict) -> str:
+    from repro_torch.configs.archs import get_config
+    full = get_config(S["arch"]).n_layers
+    return (f"{cfg.n_layers} of {full} layers" if cfg.n_layers < full else
+            f"all {full} layers")
+
+
 def _profile_decode(cfg, params, run, S: dict, dev, tag: str = "serve",
                     kv_dtype: str = "auto") -> None:
     """Where a decode step's time goes: PROFILE_STEPS more steps of the
@@ -1205,8 +1357,8 @@ def _profile_decode(cfg, params, run, S: dict, dev, tag: str = "serve",
     traced steps far slower, so their wall time is not the step's."""
     from repro_torch.serving import engine as eng
     page = cfg.page_size
-    sc = eng.ServeConfig(max_seq=-(-(S["prompt"] + S["new"]) // page) * page,
-                         batch_local=S["requests"],
+    max_seq = S.get("max_seq") or -(-(S["prompt"] + S["new"]) // page) * page
+    sc = eng.ServeConfig(max_seq=max_seq, batch_local=S["requests"],
                          hbm_fraction=S["hbm_fraction"], kv_dtype=kv_dtype)
     dec = eng.make_decode_step(cfg, sc)
     state = run.state
@@ -1260,7 +1412,7 @@ def phase_serve(dev=torch.device("cuda")) -> tuple:
     torch.backends.cudnn.allow_tf32 = False
     S = SERVE
     t0 = time.perf_counter()
-    cfg, params = serve.build(S["arch"], full=S["full"], seed=0, device=dev)
+    cfg, params = _build_serve(S, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = cfg.total_params()
@@ -1329,7 +1481,8 @@ def phase_serve(dev=torch.device("cuda")) -> tuple:
     if not (kv.lengths == S["prompt"] + steps).all():
         raise AssertionError(f"lengths {kv.lengths.tolist()}")
     t1, t2 = int(kv.t1_reads[0]), int(kv.t2_reads[0])
-    log(f"[serve] {cfg.name} ({n_params / 1e9:.2f} B params, bf16, seed 0; "
+    log(f"[serve] {cfg.name} ({_depth(cfg, S)}, {n_params / 1e9:.2f} B "
+        f"params, bf16, seed 0; "
         f"init {init_s:.1f} s), {B} requests x {S['prompt']} prompt tokens, "
         f"{steps} decode steps, hbm_fraction {S['hbm_fraction']}: prefill "
         f"{run.prefill_s:.3f} s, decode {run.decode_s:.3f} s "
@@ -1631,7 +1784,8 @@ def _serve_pair(tag: str, cfg, params, prompts, S: dict, dev):
     torch.cuda.reset_peak_memory_stats()
     run, run_h = _with_hidden(lambda: serve.serve(
         cfg, params, prompts, new=S["new"],
-        hbm_fraction=S["hbm_fraction"], promote_every=S["promote_every"]))
+        hbm_fraction=S["hbm_fraction"], promote_every=S["promote_every"],
+        extras=S.get("extras")))
     launches = serve.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     B, steps = S["requests"], S["new"] - 1
@@ -1655,7 +1809,7 @@ def _serve_pair(tag: str, cfg, params, prompts, S: dict, dev):
         plain, plain_h = _with_hidden(lambda: serve.serve(
             cfg, params, prompts, new=S["new"],
             hbm_fraction=S["hbm_fraction"], promote_every=S["promote_every"],
-            forced=forced))
+            forced=forced, extras=S.get("extras")))
     if any(serve.launch_counts().values()):
         raise AssertionError(f"[{tag}] the plain run launched a kernel")
     n_params = sum(t.numel() for t in _leaves(params))
@@ -1685,11 +1839,11 @@ def _rec_err(a, b) -> float:
 
 
 def _short_runs(cfg, params, prompts, S: dict, forced, plain_h, plain_lp,
-                runs: dict, n_steps: int) -> dict:
+                runs: dict, n_steps: int, q=None) -> dict:
     """The first ``n_steps`` decode steps of the teacher-forced serve once
     per entry of ``runs`` (name -> (patch, unpatch, plain?)): each one's
-    largest hidden-state difference and logprob gap against the plain
-    run."""
+    largest (with ``q``: ``q``-quantile of the) hidden-state difference and
+    logprob gap against the plain run."""
     from repro_torch.kernels import plain_versions
     from repro_torch.launch import serve
     n_ctl = min(n_steps, S["new"] - 1)
@@ -1703,34 +1857,37 @@ def _short_runs(cfg, params, prompts, S: dict, forced, plain_h, plain_lp,
                         cfg, params, prompts, new=n_ctl + 1,
                         hbm_fraction=S["hbm_fraction"],
                         promote_every=S["promote_every"],
-                        forced=forced[:, :n_ctl], max_seq=S["max_seq"]))
+                        forced=forced[:, :n_ctl], max_seq=S["max_seq"],
+                        extras=S.get("extras")))
             else:
                 res, h = _with_hidden(lambda: serve.serve(
                     cfg, params, prompts, new=n_ctl + 1,
                     hbm_fraction=S["hbm_fraction"],
                     promote_every=S["promote_every"],
-                    forced=forced[:, :n_ctl], max_seq=S["max_seq"]))
+                    forced=forced[:, :n_ctl], max_seq=S["max_seq"],
+                    extras=S.get("extras")))
         finally:
             unpatch()
-        out[name] = (_hidden_err(h, plain_h), float(np.abs(
-            res.logprobs - plain_lp[:, :n_ctl + 1]).max()))
+        out[name] = (_hidden_err(h, plain_h, q),
+                     _lp_err(res.logprobs, plain_lp, q))
         del res, h
     return out
 
 
 def _check_bars(tag: str, h_err: float, lp_err: float, control: dict,
-                faults: dict, n_ctl: int, tol: float = HIDDEN_TOL) -> None:
+                faults: dict, n_ctl: int, tol: float = HIDDEN_TOL,
+                lp_tol: float = LOGPROB_TOL, stat: str = "largest") -> None:
     log(f"[{tag}, plain path] final hidden state |h - h_plain| / |h_plain| "
-        f"largest {h_err:.3e} over all steps (tolerance {tol}); "
+        f"{stat} {h_err:.3e} over all steps (tolerance {tol}); "
         + "; ".join(f"{k} (first {n_ctl} steps) {v[0]:.3e} (logprobs "
                     f"{v[1]:.3e})" for k, v in {**control, **faults}.items())
-        + f"; logprobs max |diff| {lp_err:.3e} (tolerance {LOGPROB_TOL})")
+        + f"; logprobs |diff| {stat} {lp_err:.3e} (tolerance {lp_tol})")
     if not h_err <= tol:
         raise AssertionError(f"[{tag}] hidden states differ by {h_err} > "
                              f"{tol}")
-    if not lp_err <= LOGPROB_TOL:
+    if not lp_err <= lp_tol:
         raise AssertionError(f"[{tag}] logprobs differ by {lp_err} > "
-                             f"{LOGPROB_TOL}")
+                             f"{lp_tol}")
     for name, (e, _) in control.items():
         if not e <= tol:
             raise AssertionError(f"[{tag}] the noise floor '{name}' {e} is "
@@ -1970,7 +2127,7 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
     gc.collect()  # the previous phase's model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cfg, params = serve.build(S["arch"], full=True, seed=0, device=dev)
+    cfg, params = _build_serve(S, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = np.random.default_rng(0).integers(
@@ -2041,7 +2198,8 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
     spec = eng.make_kv_spec(cfg, eng.ServeConfig(
         max_seq=S["max_seq"], batch_local=S["requests"],
         hbm_fraction=S["hbm_fraction"]))
-    log(f"[{tag}] init {init_s:.1f} s; {spec.n_pages} pages a sequence, "
+    log(f"[{tag}] {_depth(cfg, S)}; init {init_s:.1f} s; {spec.n_pages} "
+        f"pages a sequence, "
         f"{spec.hbm_slots} tier-1 and {spec.t2_slots} tier-2 slots, read "
         f"window {spec.read_pages} pages "
         f"(window {cfg.window} tokens); tier-1 page reads "
@@ -2900,7 +3058,7 @@ def phase_int8_serve(bf16_run: dict, dev=torch.device("cuda")) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.perf_counter()
     S = INT8_SERVE
-    cfg, params = serve.build(S["arch"], full=S["full"], seed=0, device=dev)
+    cfg, params = _build_serve(S, dev)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (S["requests"], S["prompt"])).astype(np.int32)
     B, steps, L = S["requests"], S["new"] - 1, cfg.n_layers
@@ -2967,7 +3125,8 @@ def phase_int8_serve(bf16_run: dict, dev=torch.device("cuda")) -> dict:
                              f"run in {bad}")
     gap = float(np.abs(run.logprobs - bf16_run["logprobs"]).max())
     t1, t2 = int(kv.t1_reads[0]), int(kv.t2_reads[0])
-    log(f"[int8 serve] {cfg.name} (bf16 weights, seed 0), int8 KV pools, "
+    log(f"[int8 serve] {cfg.name} ({_depth(cfg, S)}, bf16 weights, seed 0), "
+        f"int8 KV pools, "
         f"{B} requests x {S['prompt']} prompt tokens, {steps} decode steps, "
         f"hbm_fraction {S['hbm_fraction']}: prefill {run.prefill_s:.3f} s, "
         f"decode {run.decode_s:.3f} s ({B * steps / run.decode_s:.1f} tok/s, "
@@ -3137,6 +3296,368 @@ def phase_int8_serve(bf16_run: dict, dev=torch.device("cuda")) -> dict:
                        int8_bound_ms=cb["bound_ms"]))
 
 
+def _sdpa_mask(q, k, kw) -> dict:
+    """Arguments of the one PyTorch call that computes the flash call
+    ``kw`` on q, k (the yardstick, never used by the port): no mask
+    without ``causal``; ``is_causal`` where neither a window shorter than
+    the sequence nor a prefix changes the causal mask; else a boolean
+    mask of the visible pairs."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    window, prefix = kw.get("window"), kw.get("prefix_len", 0)
+    if not kw.get("causal", True):
+        return dict(enable_gqa=True)
+    if not prefix and (window is None or window >= Sq):
+        return dict(is_causal=True, enable_gqa=True)
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Skv, device=q.device)[None, :]
+    vis = j <= i
+    if window is not None:
+        vis &= j > i - window
+    return dict(attn_mask=vis | (j < prefix), enable_gqa=True)
+
+
+def _flash_vs_plain(tag: str, name: str, call, dev) -> dict:
+    """The flash kernel against its plain version on one captured call,
+    element by element within one bf16 step; its time, the plain
+    version's, the bound and SDPA's; returns those numbers."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+    q, k, v, kw = call
+    fa.flash_attention_cuda(q, k, v, **kw)  # warm-up
+    f_ms, got = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                        reps=3)
+    fp_ms, want = cuda_ms(lambda: attention_ref(q, k, v, **kw))
+    f_err = float((got.float() - want.float()).abs().max())
+    f_rel = float(((got.float() - want.float()).abs()
+                   / (want.float().abs() + 1)).max())
+    f_exc = _bf16_step_excess(got, want)
+    out = dict(ms=f_ms, plain_ms=fp_ms, max_abs_err=f_err, exc=f_exc)
+    if kw.get("prefix_len"):
+        # A planted fault: the plain version with the prefix mask dropped
+        # (plain causal attention) must fail the bar.
+        no_prefix = attention_ref(q, k, v, causal=True,
+                                  window=kw.get("window"))
+        out["no_prefix_exc"] = _bf16_step_excess(got, no_prefix)
+        del no_prefix
+        if not out["no_prefix_exc"] > 1:
+            raise AssertionError(f"[{tag}] the flash check passes a plain "
+                                 f"version without the prefix mask")
+    del got, want
+    if not (f_rel <= FLASH_TOL and f_exc <= 1):
+        raise AssertionError(f"[{tag}] flash kernel != plain ({name}): "
+                             f"{f_err} (rel {f_rel}, element-wise {f_exc})")
+    sdpa = _sdpa_mask(q, k, kw)
+    F_ = torch.nn.functional
+    F_.scaled_dot_product_attention(q, k, v, **sdpa)
+    out["library_ms"], _ = cuda_ms(
+        lambda: F_.scaled_dot_product_attention(q, k, v, **sdpa), reps=3)
+    lib = ("SDPA" + (", is_causal" if sdpa.get("is_causal") else "")
+           + (", boolean mask" if "attn_mask" in sdpa else ""))
+    del sdpa
+    fb = _flash_bound(q, k, kw.get("window"), kw.get("causal", True),
+                      kw.get("prefix_len", 0))
+    out.update(bound_ms=fb["bound_ms"], bound_by=fb["bound_by"],
+               bound_terms=fb["bound_terms"],
+               shape=f"q {list(q.shape)}, k/v {list(k.shape)}, " + ", ".join(
+                   f"{a}={b}" for a, b in kw.items()) + ", bf16")
+    log(f"[{tag}, flash vs plain] {name}: {out['shape']}: max |diff| "
+        f"{f_err:.3e}, |diff| / (|plain| + 1) {f_rel:.3e} (tolerance "
+        f"{FLASH_TOL}), element-wise {f_exc:.3f} of its bar (1)"
+        + (f", the plain version without the prefix mask "
+           f"{out['no_prefix_exc']:.3f}" if "no_prefix_exc" in out else "")
+        + f"; kernel {f_ms:.3f} ms, plain {fp_ms:.1f} ms, {lib} "
+        f"{out['library_ms']:.3f} ms, {fmt_bound(fb)}")
+    return out
+
+
+def phase_family_serve(S: dict, dev=torch.device("cuda")) -> dict:
+    """Phases 17-19: whisper-tiny (encoder-decoder), paligemma-3b (VLM
+    prefix) or mixtral-8x22b (MoE, depth cut) served at full width through
+    ``repro_torch.launch.serve`` as phase 10 serves mistral: launches
+    counted; the whole serve again with the plain versions, teacher-forced
+    (tier state equal, hidden states and logprobs within the phase's bars
+    against its measured noise floor, planted faults above them); each
+    flash call of the path (whisper: the encoder, the cross- and the
+    causal self-attention; paligemma: prefix-LM; mixtral: the window),
+    paged attention and page copy against their plain versions on
+    captured inputs. Returns the flash, paged and page-copy entries' keys
+    at this model's shapes."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import page_gather as pg
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import page_copy_ref, paged_attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.attention import blockwise_attention
+    from repro_torch.serving import engine as eng
+    gc.collect()  # the previous phases' models
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    tag = S["tag"]
+    cfg, params = _build_serve(S, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    B, steps, L = S["requests"], S["new"] - 1, cfg.n_layers
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (B, S["prompt"])).astype(np.int32)
+    extras = serve.make_extras(cfg, B, rng, dev)
+    n_pos = cfg.vlm_prefix + S["prompt"] + S["new"]
+    S = dict(S, extras=extras,
+             max_seq=-(-n_pos // cfg.page_size) * cfg.page_size)
+
+    # Captures from the kernel run: each kind of flash call (the first of
+    # each), the last decode step's two paged launches of layer 0, the
+    # first prefill population, and the MoE's dropped fractions at prefill.
+    cap: dict = dict(flash={}, dropped=[])
+    n_flash: dict = {}
+    calls = dict(paged=0)
+    last = (steps - 1) * 2 * L
+    flash0, paged0, copy0 = fa.flash_attention, pa.paged_attention, \
+        pg.page_copy
+    moe0, cross0 = moe.moe_swiglu, eng._decode_cross_attention
+
+    def flash_hook(q, k, v, **kw):
+        kind = ("self" if kw.get("causal", True) else
+                "enc" if q.shape[2] == k.shape[2] else "cross")
+        cap["flash"].setdefault(kind, (q.clone(), k.clone(), v.clone(), kw))
+        n0 = fa.flash_attention_launch_count()
+        out = flash0(q, k, v, **kw)
+        n_flash[kind] = n_flash.get(kind, 0) + (
+            fa.flash_attention_launch_count() - n0)
+        return out
+
+    def paged_hook(q, pool, slot, live, window=0, scale=None):
+        if calls["paged"] - last in (0, 1):
+            cap.setdefault("paged", []).append(
+                (q.clone(), pool, slot.clone(), live.clone(), window))
+        calls["paged"] += 1
+        return paged0(q, pool, slot, live, window, scale=scale)
+
+    def copy_hook(dst, src, di, si):
+        if "copy" not in cap:
+            cap["copy"] = (dst, src.clone(), di.clone(), si.clone())
+        return copy0(dst, src, di, si)
+
+    def moe_hook(x, *w):
+        out = moe0(x, *w)
+        if x.shape[0] > B and len(cap["dropped"]) < L:  # the prefill's
+            cap["dropped"].append(float(out.dropped))
+        return out
+
+    def cross_hook(x, p, cfg_, ck, cv):
+        cap.setdefault("cross", (x.clone(), p, cfg_, ck, cv))
+        return cross0(x, p, cfg_, ck, cv)
+
+    fa.flash_attention, pa.paged_attention, pg.page_copy = (
+        flash_hook, paged_hook, copy_hook)
+    moe.moe_swiglu, eng._decode_cross_attention = moe_hook, cross_hook
+    try:
+        run, run_h, launches, plain, plain_h, forced, peak = _serve_pair(
+            tag, cfg, params, prompts, S, dev)
+    finally:
+        fa.flash_attention, pa.paged_attention, pg.page_copy = (
+            flash0, paged0, copy0)
+        moe.moe_swiglu, eng._decode_cross_attention = moe0, cross0
+    n_enc = cfg.n_enc_layers if cfg.enc_dec else 0
+    want = dict(flash_attention=L + n_enc + (L if cfg.enc_dec else 0),
+                paged_attention=2 * L * steps, ssd_scan=0, rglru_scan=0)
+    if any(launches[k] != v for k, v in want.items()) or \
+            not launches["page_copy"]:
+        raise AssertionError(f"[{tag}] launches {launches}, want {want} and "
+                             "page copies")
+    kv, pkv = run.state.kv, plain.state.kv
+    bad = _tier_state_equal(kv, pkv)
+    if bad:
+        raise AssertionError(f"[{tag}] kernel run != plain run in {bad}")
+    if not (kv.lengths == cfg.vlm_prefix + S["prompt"] + steps).all():
+        raise AssertionError(f"[{tag}] lengths {kv.lengths.tolist()}")
+    spec = eng.make_kv_spec(cfg, eng.ServeConfig(
+        max_seq=S["max_seq"], batch_local=B, hbm_fraction=S["hbm_fraction"]))
+    rec_err = _rec_err(run.state, plain.state)
+    drop = cap["dropped"]
+    log(f"[{tag}] {_depth(cfg, S)} at full width (d {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, hd {cfg.head_dim}); "
+        f"init {init_s:.1f} s; "
+        + "".join(f"{k} {list(v.shape)}, " for k, v in extras.items())
+        + f"{spec.n_pages} pages a sequence, {spec.hbm_slots} tier-1 and "
+        f"{spec.t2_slots} tier-2 slots, read window {spec.read_pages} pages; "
+        f"tier-1 page reads {int(kv.t1_reads[0])}, tier-2 "
+        f"{int(kv.t2_reads[0])}, evictions {int(kv.evictions[0])}, "
+        f"write-backs {int(kv.writebacks[0])}; OL weights "
+        f"{kv.ols.weights.tolist()}; tier state and learner equal to the "
+        f"plain run's (integers exact, f32 weights bit for bit); flash "
+        f"launches by kind {n_flash}"
+        + (f"; cross-attention keys and values after the prefill, kernel "
+           f"run vs plain run: largest |diff| / largest |plain| "
+           f"{rec_err:.3e}" if cfg.enc_dec else "")
+        + (f"; prefill's dropped (token, k) slots, capacity factor "
+           f"{cfg.moe.capacity_factor}: {min(drop):.4f}..{max(drop):.4f} "
+           f"over {len(drop)} layers (mean {np.mean(drop):.4f})"
+           if cfg.moe is not None else ""))
+    q = S.get("quantile")
+    h_err = _hidden_err(run_h, plain_h, q)
+    lp_err = _lp_err(run.logprobs, plain.logprobs, q)
+    log(f"[{tag}, plain path] kernel run vs plain run, final hidden state "
+        f"|h - h_plain| / |h_plain| over {steps + 1} steps x {B} sequences, "
+        f"quantiles 0.5 / 0.9 / 0.99 / largest: " + " / ".join(
+            f"{_hidden_err(run_h, plain_h, x):.3e}" for x in (0.5, 0.9, 0.99,
+                                                              None))
+        + "; logprobs |diff|: " + " / ".join(
+            f"{_lp_err(run.logprobs, plain.logprobs, x):.3e}"
+            for x in (0.5, 0.9, 0.99, None)))
+
+    # The noise floor (the plain path with blockwise prefill attention) and
+    # the planted faults on the kernel path, over CONTROL_STEPS steps.
+    def blockwise(q, k, v, **kw):
+        return blockwise_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), **kw).transpose(1, 2)
+    runs = {"noise floor (plain, blockwise prefill attention)": (
+        lambda: setattr(fa, "flash_attention", blockwise),
+        lambda: setattr(fa, "flash_attention", flash0), True)}
+    if cfg.enc_dec:
+        seen = dict(n=0)
+
+        def zero_layer0(x, p, cfg_, ck, cv):
+            seen["n"] += 1
+            if seen["n"] % L == 1:  # the first decoder layer of each step
+                ck, cv = torch.zeros_like(ck), torch.zeros_like(cv)
+            return cross0(x, p, cfg_, ck, cv)
+        runs["fault: layer 0's cross-attention keys and values zeroed"] = (
+            lambda: setattr(eng, "_decode_cross_attention", zero_layer0),
+            lambda: setattr(eng, "_decode_cross_attention", cross0), False)
+    if cfg.vlm_prefix:
+        def no_prefix(q, k, v, **kw):
+            return flash0(q, k, v, **dict(kw, prefix_len=0))
+        runs["fault: prefix mask dropped at prefill"] = (
+            lambda: setattr(fa, "flash_attention", no_prefix),
+            lambda: setattr(fa, "flash_attention", flash0), False)
+    if cfg.moe is not None:
+        def top1(x, *w):
+            *ws, mc = w
+            return moe0(x, *ws, dataclasses.replace(mc, top_k=1))
+        runs["fault: top-1 routing instead of top-2"] = (
+            lambda: setattr(moe, "moe_swiglu", top1),
+            lambda: setattr(moe, "moe_swiglu", moe0), False)
+    n_ctl = min(CONTROL_STEPS, steps)
+    short = _short_runs(cfg, params, prompts, S, forced, plain_h,
+                        plain.logprobs, runs, n_ctl, q=q)
+    control = {k: v for k, v in short.items() if k.startswith("noise")}
+    faults = {k: v for k, v in short.items() if k.startswith("fault")}
+    _check_bars(tag, h_err, lp_err, control, faults, n_ctl,
+                tol=S["hidden_tol"], lp_tol=S.get("logprob_tol", LOGPROB_TOL),
+                stat="largest" if q is None else f"{q}-quantile")
+    del plain, plain_h, pkv, run_h
+
+    # Each kind of flash call against the plain version.
+    names = dict(enc="encoder (full attention)",
+                 cross="prefill cross-attention (full, Sq != Skv)",
+                 self="layer 0's causal self-attention")
+    flash = {}
+    for kind, call in cap["flash"].items():
+        flash[kind] = _flash_vs_plain(tag, names[kind], call, dev)
+        flash[kind]["launches"] = n_flash.get(kind, 0)
+    del cap["flash"]
+
+    # Paged: both tiers of layer 0 at the last decode step.
+    pcalls = cap["paged"]
+    p_err = max(_rel_err(g, w) for c in pcalls for g, w in zip(
+        pa.paged_attention_cuda(*c), paged_attention_ref(*c)))
+    if not p_err <= PAGED_REL_TOL:
+        raise AssertionError(f"[{tag}] paged kernel != plain: {p_err}")
+    p_ms, _ = cuda_ms(lambda: [pa.paged_attention_cuda(*c) for c in pcalls],
+                      reps=10)
+    conv = [_paged_inputs(c) for c in pcalls]
+    p_graph = graph_ms(lambda: [pa.paged_attention_cuda(*c) for c in conv])
+    pp_ms, _ = cuda_ms(lambda: [paged_attention_ref(*c) for c in pcalls],
+                       reps=3)
+    pb = _paged_bound(pcalls, cfg.page_size)
+    n_split = pa.split_plan(B, cfg.n_kv_heads, pcalls[0][2].shape[1],
+                            cfg.page_size)
+    log(f"[{tag}, paged vs plain] last decode step, layer 0, both tiers, q "
+        f"{list(pcalls[0][0].shape)}, window {pcalls[0][4]}: largest |diff| "
+        f"/ largest |plain| {p_err:.3e} (tolerance {PAGED_REL_TOL}); "
+        f"(n_split, span) {n_split}: kernel {p_ms:.4f} ms in a loop of "
+        f"calls, {p_graph:.4f} ms from a CUDA graph of its launches alone, "
+        f"plain {pp_ms:.3f} ms, {fmt_bound(pb)}")
+
+    # Page copy: the first prefill population, byte for byte.
+    dst, src, di, si = cap["copy"]
+    whole = kv.pool2
+    off = (dst.data_ptr() - whole.data_ptr()) // whole.element_size()
+    outs = []
+    for fn in (pg.page_copy_cuda, page_copy_ref):
+        buf = whole.clone()
+        view = buf.view(-1)[off:].as_strided(dst.shape, dst.stride())
+        fn(view, src, di, si)
+        torch.cuda.synchronize()
+        outs.append(buf)
+    if not torch.equal(outs[0].view(torch.uint8), outs[1].view(torch.uint8)):
+        raise AssertionError(f"[{tag}] page copy kernel != plain")
+    view = outs[0].view(-1)[off:].as_strided(dst.shape, dst.stride())
+    c_ms, _ = cuda_ms(lambda: pg.page_copy_cuda(view, src, di, si), reps=5)
+    cp_ms, _ = cuda_ms(lambda: page_copy_ref(view, src, di, si))
+    live = (di >= 0) & (si >= 0)
+    ldi, lsi = di[live].long().to(dev), si[live].long().to(dev)
+
+    def library():
+        view[ldi] = src[lsi]
+    library()
+    c_lib, _ = cuda_ms(library, reps=5)
+    row_bytes = dst[0].numel() * dst.element_size()
+    cb = _copy_bound(int(live.sum()), row_bytes)
+    del outs, view
+    log(f"[{tag}, page copy vs plain] prefill population of layer 0 into "
+        f"tier 2 ({int(live.sum())} pages of {row_bytes} B): equal byte for "
+        f"byte; kernel {c_ms:.3f} ms, plain {cp_ms:.3f} ms, dst[di] = "
+        f"src[si] {c_lib:.3f} ms, {fmt_bound(cb)}")
+
+    if cfg.enc_dec:  # the plain cross-attention of a decode step
+        x, p, cfg_, ck, cv = cap["cross"]
+        x_ms, _ = cuda_ms(lambda: cross0(x, p, cfg_, ck, cv), reps=20)
+        # Launches counted on the host side (the runtime's launch calls):
+        # a short trace after the earlier phases' traces may miss device
+        # events.
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            cross0(x, p, cfg_, ck, cv)
+            torch.cuda.synchronize()
+        n_k = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                  for e in prof.events())
+        log(f"[{tag}, decode cross-attention] plain PyTorch over the stored "
+            f"keys and values {list(ck.shape)}: {n_k} kernel launches and "
+            f"{x_ms:.4f} ms a layer, {L} layers a decode step")
+    _profile_decode(cfg, params, run, S, dev, tag=tag)
+    log(f"[{tag}] prefill {run.prefill_s:.3f} s, decode "
+        f"{1e3 * run.decode_s / steps:.2f} ms/step; peak memory {peak:.1f} "
+        f"GB; phase took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card_line()}]")
+    del run, params, cap
+    key = S["key"]
+    out = dict(flash_attention={}, paged_attention=dict(
+        {f"{key}_launches": launches["paged_attention"],
+         f"{key}_max_abs_err": p_err, f"{key}_ms": p_ms,
+         f"{key}_ms_graph": p_graph, f"{key}_plain_ms": pp_ms,
+         f"{key}_bound_ms": pb["bound_ms"], f"{key}_bound_by": pb["bound_by"],
+         f"{key}_library_ms": None,
+         f"{key}_shape": f"both tiers of layer 0 at the last decode step, q "
+                         f"{list(pcalls[0][0].shape)}, pools "
+                         f"{list(kv.pool1.shape)} / {list(kv.pool2.shape)}"}),
+        page_copy={f"{key}_launches": launches["page_copy"],
+                   f"{key}_ms": c_ms, f"{key}_plain_ms": cp_ms,
+                   f"{key}_bound_ms": cb["bound_ms"],
+                   f"{key}_library_ms": c_lib})
+    for kind, f in flash.items():
+        fk = S["flash_keys"][kind]
+        out["flash_attention"].update({
+            f"{fk}_{n}": f[n] for n in (
+                "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "shape")})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3163,9 +3684,13 @@ def main() -> int:
     phase_train()
     phase_configurator()
     int8 = phase_int8_serve(bf16_run)
+    breadth = [phase_family_serve(S) for S in (WHISPER_SERVE, VLM_SERVE,
+                                               MOE_SERVE)]
     for entry in serving:
         entry.update(at_rg[entry["name"]])
         entry.update(int8[entry["name"]])
+        for fam in breadth:
+            entry.update(fam[entry["name"]])
     cache_scan = dict(
         name="cache_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/cache_scan.cu",

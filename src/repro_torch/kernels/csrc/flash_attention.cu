@@ -1,5 +1,6 @@
-// Flash attention forward for Hopper (sm_90a): causal or sliding-window
-// GQA attention with an online softmax, never materializing the scores.
+// Flash attention forward for Hopper (sm_90a): full, causal,
+// sliding-window or prefix-LM GQA attention with an online softmax, never
+// materializing the scores.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
 // flash_attention (grid (batch, q head, q block, kv block) with the kv
@@ -8,7 +9,7 @@
 // For query i of head h (kv head h / G) and keys j:
 //
 //   visible(i, j) = j < Skv and (not causal or (j <= i and
-//                   (window < 0 or j > i - window)))
+//                   (window <= 0 or j > i - window)) or j < prefix)
 //   out[i] = sum_j softmax_j(q_i . k_j / sqrt(hd)) v_j   over visible j,
 //
 // divided by max(l, 1e-30) as the TPU kernel does, in q's dtype.
@@ -52,9 +53,10 @@
 //   online softmax runs in registers on the
 //   accumulator layout: row max and sum over the 4 threads of a quad,
 //   exp2 with scale * log2(e) folded in, l summed from the unrounded f32
-//   P. Key tiles wholly masked by causality or the window are skipped;
-//   only tiles that cross the diagonal, the window's edge or the sequence
-//   end are masked element by element.
+//   P. Key tiles wholly masked by causality or the window are skipped
+//   (a prefix-LM's prefix tiles are visited by every row); only tiles
+//   that cross the diagonal, the window's edge or the sequence end are
+//   masked element by element.
 // - O += P V is one wgmma m64n{hd}k16 a 16-key step, A = P from registers,
 //   B = V through the transposed (MN-major) descriptor that 16-bit types
 //   allow, so V is used as it is copied.
@@ -100,7 +102,7 @@ __global__ void __launch_bounds__(kThreads)
 kernel(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ v, float* __restrict__ out, Strides qs,
        Strides kst, Strides vs, Strides os, int H, int KV, int Sq, int Skv,
-       int causal, int window, float scale) {
+       int causal, int window, int prefix, float scale) {
   constexpr int QS = HD + 1;  // padded Q/K rows
   constexpr int DV = HD / 8;  // output dims a thread
   extern __shared__ __align__(16) unsigned char smem[];
@@ -139,6 +141,10 @@ kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (causal) {
     kt_hi = min(n_kt, q_last / kBK + 1);
     if (window > 0) kt_lo = max(0, q0 - window + 1) / kBK;
+    if (prefix > 0) {  // the prefix's tiles are visible to every row
+      kt_lo = 0;
+      kt_hi = max(kt_hi, min(n_kt, (prefix + kBK - 1) / kBK));
+    }
   }
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
@@ -179,10 +185,9 @@ kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 8; ++j) {
         const int kp = k0 + c + 8 * j;
         bool vis = kp < Skv;
-        if (causal) {
-          vis = vis && kp <= qp;
-          if (window > 0) vis = vis && kp > qp - window;
-        }
+        if (causal)
+          vis = vis && ((kp <= qp && (window <= 0 || kp > qp - window)) ||
+                        kp < prefix);
         ok[j] = vis;
         s[i][j] = vis ? s[i][j] * scale : kNeg;
         mx = fmaxf(mx, s[i][j]);
@@ -237,7 +242,7 @@ kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
-           int KV, int Sq, int Skv, int causal, int window,
+           int KV, int Sq, int Skv, int causal, int window, int prefix,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * kBQ * (HD + 1) + kBK * HD +
                                        kBQ * (kBK + 1));
@@ -253,7 +258,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), qs, ks, vs, os,
-      H, KV, Sq, Skv, causal, window, scale);
+      H, KV, Sq, Skv, causal, window, prefix, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -627,7 +632,7 @@ kernel(const __grid_constant__ CUtensorMap tq,
        const __grid_constant__ CUtensorMap tk,
        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
        Strides os, int H, int KV, int Sq, int Skv, int causal, int window,
-       float scale_log2) {
+       int prefix, float scale_log2) {
   using Sh = Shape<HD>;
   constexpr int BK = Sh::BK, STAGES = Sh::STAGES;
   constexpr int QTILE = Sh::QTILE, KTILE = Sh::KTILE;
@@ -649,12 +654,17 @@ kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = qt * kWG * kRows;
   const int tid = threadIdx.x, wg = tid >> 7;
 
-  // Key tiles of the block.
+  // Key tiles of the block; the prefix's tiles are visible to every row.
   const int n_kt = (Skv + BK - 1) / BK;
+  const int prefix_hi = min(n_kt, (prefix + BK - 1) / BK);
   int kt_lo = 0, kt_hi = n_kt;
   if (causal) {
     kt_hi = min(n_kt, (min(q0 + kWG * kRows, Sq) - 1) / BK + 1);
     if (window > 0) kt_lo = max(0, q0 - window + 1) / BK;
+    if (prefix > 0) {
+      kt_lo = 0;
+      kt_hi = max(kt_hi, prefix_hi);
+    }
   }
 
   const int n_tiles = kt_hi - kt_lo;
@@ -691,6 +701,10 @@ kernel(const __grid_constant__ CUtensorMap tq,
   if (causal && qw0 < Sq) {
     my_hi = min(n_kt, qw1 / BK + 1);
     if (window > 0) my_lo = max(0, qw0 - window + 1) / BK;
+    if (prefix > 0) {
+      my_lo = 0;
+      my_hi = max(my_hi, prefix_hi);
+    }
   }
   // Accumulator layout of wgmma m64nN: thread (warp, lane) holds rows
   // r0 = 16 warp + lane / 4 and r0 + 8, columns 8 j + 2 (lane % 4) +
@@ -730,12 +744,13 @@ kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait_all();
       fence_regs<NS>(s);
 
-      // Mask only a tile that crosses the sequence end, the diagonal or
-      // the window's edge for some row of this warpgroup.
+      // Mask only a tile that crosses the sequence end, or, outside the
+      // prefix, the diagonal or the window's edge for some row of this
+      // warpgroup.
       const bool edge =
           k0 + BK > Skv ||
-          (causal && (k0 + BK - 1 > qw0 ||
-                      (window > 0 && k0 <= qw1 - window)));
+          (causal && k0 + BK > prefix &&
+           (k0 + BK - 1 > qw0 || (window > 0 && k0 <= qw1 - window)));
       float corr[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -751,7 +766,8 @@ kernel(const __grid_constant__ CUtensorMap tq,
               const int kp = k0 + 8 * j + cq + c;
               bool vis = kp < Skv;
               if (causal)
-                vis = vis && kp <= qp && (window <= 0 || kp > qp - window);
+                vis = vis && ((kp <= qp && (window <= 0 || kp > qp - window))
+                              || kp < prefix);
               if (!vis) sc = kNeg;
             }
             s[x] = sc;
@@ -887,7 +903,7 @@ bool make_map(CUtensorMap* map, const void* base, Strides st, int B,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
-           int KV, int Sq, int Skv, int causal, int window,
+           int KV, int Sq, int Skv, int causal, int window, int prefix,
            cudaStream_t stream) {
   constexpr int smem = Shape<HD>::SMEM;
   CUtensorMap tq, tk, tv;
@@ -905,7 +921,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
       1.4426950408889634f / sqrtf(static_cast<float>(HD));
   kern<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), os, H, KV, Sq, Skv,
-      causal, window, scale_log2);
+      causal, window, prefix, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -913,7 +929,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 using LaunchFn = int (*)(const void*, const void*, const void*, void*,
                          Strides, Strides, Strides, Strides, int, int, int,
-                         int, int, int, int, cudaStream_t);
+                         int, int, int, int, int, cudaStream_t);
 
 template <int HD>
 LaunchFn pick(int dtype) {
@@ -943,11 +959,13 @@ const char* flash_attention_error_string(int code) {
 // q/out: [B, H, Sq, hd] and k/v: [B, KV, Skv, hd] as element strides
 // (batch, head, sequence) with the head dim contiguous; dtype 0 = f32,
 // 1 = bf16 (pointers 16-byte aligned, strides multiples of 8); window
-// <= 0 = none. Returns the launch error.
+// <= 0 = none; with causal, keys below prefix_len are visible to every
+// query (prefix-LM). Returns the launch error.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int dtype, const long long* strides,
                            int B, int H, int KV, int Sq, int Skv, int hd,
-                           int causal, int window, void* stream) {
+                           int causal, int window, int prefix_len,
+                           void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const LaunchFn fn = dispatch(dtype, hd);
@@ -957,7 +975,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
   return fn(q, k, v, out, qs, ks, vs, os, B, H, KV, Sq, Skv, causal, window,
-            static_cast<cudaStream_t>(stream));
+            prefix_len, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

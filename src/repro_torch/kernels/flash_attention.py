@@ -1,8 +1,10 @@
 """Flash attention forward as a hand-written CUDA kernel.
 
-Causal or sliding-window GQA attention with an online softmax
-(``csrc/flash_attention.cu``), the prefill attention of the serving path:
-bf16 on the tensor cores (``wgmma``), f32 on the CUDA cores.
+GQA attention with an online softmax (``csrc/flash_attention.cu``):
+full (whisper's encoder and cross-attention), causal, sliding-window or
+prefix-LM (paligemma's bidirectional prefix of patch embeddings), the
+prefill attention of the serving path: bf16 on the tensor cores
+(``wgmma``), f32 on the CUDA cores.
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:
 flash_attention``; the plain version is
 :func:`repro_torch.kernels.ref.attention_ref`.
@@ -58,11 +60,11 @@ def _library():
     if _LIB[0] is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _LIB[0] = load_library(SOURCE, "flash_attention_launch",
-                               [p, p, p, p, i, p] + [i] * 8 + [p])
+                               [p, p, p, p, i, p] + [i] * 9 + [p])
     return _LIB[0]
 
 
-def _check(q, k, v, window) -> None:
+def _check(q, k, v, window, prefix_len=0) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("q must be [B, H, Sq, hd], k and v [B, KV, Skv, hd]"
                          f"; got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -75,14 +77,17 @@ def _check(q, k, v, window) -> None:
         raise ValueError("q, k and v must share one dtype")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None,
+                         prefix_len: int = 0) -> torch.Tensor:
     """Launch the kernel on CUDA tensors (f32 or bf16, head dim in
     :data:`HEAD_DIMS`, contiguous along it)."""
-    _check(q, k, v, window)
+    _check(q, k, v, window, prefix_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
@@ -106,7 +111,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], ctypes.cast(strides, ctypes.c_void_p), B, H, KV,
-        Sq, Skv, hd, int(causal), int(window or 0),
+        Sq, Skv, hd, int(causal), int(window or 0), int(prefix_len),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(lib, SOURCE, err)
     _LAUNCHES[0] += 1
@@ -114,14 +119,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """Attention ``[B, H, Sq, hd]`` in q's dtype: the plain version for CPU
-    tensors, the kernel for CUDA tensors."""
-    _check(q, k, v, window)
+    tensors, the kernel for CUDA tensors. Without ``causal`` every key is
+    visible (``Sq`` and ``Skv`` may differ); with it, key ``j`` is visible
+    to query ``i`` if ``j <= i`` (and ``j > i - window``) or ``j <
+    prefix_len``."""
+    _check(q, k, v, window, prefix_len)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
     if q.device.type == "cpu" or (q.device.type == "cuda"
                                    and plain_selected()):
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention path for device {q.device}")
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q, k, v, **kw)

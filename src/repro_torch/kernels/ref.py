@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's hand kernels.
 
-- :func:`attention_ref`: causal / sliding-window GQA attention, the golden
-  of ``csrc/flash_attention.cu``.
+- :func:`attention_ref`: GQA attention, full, causal, sliding-window or
+  prefix-LM, the golden of ``csrc/flash_attention.cu``.
 - :func:`paged_attention_ref`: the decode-attention partial over the
   pages of one pool reached through a page table, the golden of
   ``csrc/paged_attention.cu``.
@@ -54,13 +54,15 @@ _I32_MIN, _I32_SPAN = -(2**31), 2**32
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True,
-                  window: Optional[int] = None) -> torch.Tensor:
+                  causal: bool = True, window: Optional[int] = None,
+                  prefix_len: int = 0) -> torch.Tensor:
     """Softmax attention in f32, one sequence at a time (so the ``[H, Sq,
     Skv]`` scores of one sequence are the largest temporary). q ``[B, H,
     Sq, hd]``, k/v ``[B, KV, Skv, hd]`` (any strides) -> ``[B, H, Sq,
-    hd]`` in q's dtype. Key ``j`` is visible to query ``i`` if ``i >= j``
-    (causal) and ``j > i - window`` (window)."""
+    hd]`` in q's dtype. Without ``causal`` every key is visible; with it,
+    key ``j`` is visible to query ``i`` if ``i >= j`` and ``j > i -
+    window`` (window), or if ``j < prefix_len`` (a prefix-LM's
+    bidirectional prefix)."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     G = H // KV
@@ -72,6 +74,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = qpos >= kpos
         if window is not None:
             mask &= kpos > qpos - window
+        if prefix_len:
+            mask |= kpos < prefix_len
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     for b in range(B):
         qf = q[b].to(torch.float32).reshape(KV, G, Sq, hd)

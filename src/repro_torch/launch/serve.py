@@ -11,8 +11,16 @@ paper's fig. 2 pipeline end to end. Without ``--full`` the architecture's
 reduced variant runs. ``--arch mamba2-370m`` (no attention, so no KV
 pools) and ``--arch recurrentgemma-9b`` (RG-LRU blocks and sliding-window
 attention) run their scans through the SSD and RG-LRU kernels.
-``--int8-kv`` keeps the KV pools in int8 with an f32 scale a (token,
-k/v), read by the paged-attention kernel's int8 variant.
+``--arch whisper-tiny`` (an encoder-decoder: each request brings
+``enc_seq`` stub frame embeddings, encoded once at prefill and attended
+to by every decoder layer), ``--arch paligemma-3b`` (each request's
+``vlm_prefix`` stub patch embeddings form a bidirectional prefix before
+the prompt) and ``--arch mixtral-8x22b`` (top-2 of 8 experts behind
+sliding-window attention) serve the other families; the stub embeddings
+are drawn from the same seeded generator as the prompts
+(:func:`make_extras`). ``--int8-kv`` keeps the KV pools in int8 with an
+f32 scale a (token, k/v), read by the paged-attention kernel's int8
+variant.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from repro_torch.serving.engine import (DecodeState, ServeConfig,
                                         make_decode_step, make_kv_spec,
                                         make_prefill_step)
 
-__all__ = ["build", "serve", "ServeResult", "launch_counts",
+__all__ = ["build", "make_extras", "serve", "ServeResult", "launch_counts",
            "reset_launch_counts", "main"]
 
 
@@ -58,6 +66,24 @@ def build(arch: str, *, full: bool = False, seed: int = 0,
     return cfg, init_params(cfg, seed, device)
 
 
+def make_extras(cfg: ModelConfig, n: int, rng: np.random.Generator,
+                device=None) -> dict:
+    """The per-request inputs that are not tokens, as the reference's
+    launcher makes them: whisper's stub frame embeddings ``frames [n,
+    enc_seq, d]`` and a VLM's stub patch embeddings ``prefix_embeds [n,
+    vlm_prefix, d]``, each ``normal x 0.02`` from ``rng`` (frames first),
+    in the parameters' dtype on ``device``; ``{}`` for other models."""
+    dtype = getattr(torch, cfg.param_dtype)
+    out = {}
+    for name, n_pos, on in (("frames", cfg.enc_seq, cfg.enc_dec),
+                            ("prefix_embeds", cfg.vlm_prefix,
+                             bool(cfg.vlm_prefix))):
+        if on:
+            x = rng.normal(size=(n, n_pos, cfg.d_model)) * 0.02
+            out[name] = torch.as_tensor(x).to(device=device, dtype=dtype)
+    return out
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -67,18 +93,24 @@ def serve(cfg: ModelConfig, params: dict, prompts, *, new: int,
           hbm_fraction: float = 0.5, promote_every: int = 4,
           n_promote: int = 2, forced: Optional[torch.Tensor] = None,
           max_seq: Optional[int] = None,
-          kv_dtype: str = "auto") -> ServeResult:
-    """Prefill ``prompts`` ``[B, S]``, then ``new - 1`` decode steps, greedy
-    (or fed ``forced [B, new - 1]`` instead of the generated tokens:
-    teacher forcing), promoting pages every ``promote_every`` steps, on the
-    parameters' device. The pools hold ``max_seq`` tokens a sequence
-    (default: the prompt and ``new``, up to whole pages) in ``kv_dtype``
-    (``"auto"``: the parameters' dtype; or ``"int8"``)."""
+          kv_dtype: str = "auto",
+          extras: Optional[dict] = None) -> ServeResult:
+    """Prefill ``prompts`` ``[B, S]`` (with ``extras``: whisper's
+    ``frames``, a VLM's ``prefix_embeds``, see :func:`make_extras`), then
+    ``new - 1`` decode steps, greedy (or fed ``forced [B, new - 1]``
+    instead of the generated tokens: teacher forcing), promoting pages
+    every ``promote_every`` steps, on the parameters' device. The pools
+    hold ``max_seq`` tokens a sequence (default: a VLM's prefix, the
+    prompt and ``new``, up to whole pages) in ``kv_dtype`` (``"auto"``:
+    the parameters' dtype; or ``"int8"``)."""
     dev = params["embed"].device
     prompts = torch.as_tensor(prompts)
     B, S = prompts.shape
+    extras = extras or {}
     if max_seq is None:
-        max_seq = -(-(S + new) // cfg.page_size) * cfg.page_size
+        n = S + new + (extras["prefix_embeds"].shape[1]
+                       if "prefix_embeds" in extras else 0)
+        max_seq = -(-n // cfg.page_size) * cfg.page_size
     sc = ServeConfig(max_seq=max_seq, batch_local=B, page_axes=(),
                      hbm_fraction=hbm_fraction, n_promote=n_promote,
                      kv_dtype=kv_dtype)
@@ -88,7 +120,7 @@ def serve(cfg: ModelConfig, params: dict, prompts, *, new: int,
 
     _sync(dev)
     t0 = time.perf_counter()
-    state, (tok, lp) = prefill(params, prompts)
+    state, (tok, lp) = prefill(params, prompts, extras)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -143,15 +175,17 @@ def main(argv=None) -> None:
     cfg, params = build(args.arch, full=args.full, device=args.device)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, (args.requests, args.prompt))
+    extras = make_extras(cfg, args.requests, rng, params["embed"].device)
     reset_launch_counts()
     res = serve(cfg, params, prompts.astype(np.int32), new=args.new,
                 hbm_fraction=args.hbm_fraction,
                 promote_every=args.promote_every,
-                kv_dtype="int8" if args.int8_kv else "auto")
+                kv_dtype="int8" if args.int8_kv else "auto", extras=extras)
     kv = res.state.kv
     steps = args.new - 1
+    shapes = "".join(f"{k}={list(v.shape[1:])} " for k, v in extras.items())
     print(f"arch={cfg.name} requests={args.requests} prompt={args.prompt} "
-          f"new={args.new} "
+          f"new={args.new} {shapes}"
           f"kv={'int8' if args.int8_kv else cfg.param_dtype} device="
           f"{params['embed'].device}")
     print(f"prefill {res.prefill_s:.3f}s; decode {res.decode_s:.3f}s "

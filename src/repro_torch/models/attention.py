@@ -2,8 +2,8 @@
 partial state of decode attention.
 
 ``blockwise_attention`` is the reference's online-softmax attention over
-KV blocks, with the blocks that a causal or sliding-window pattern cannot
-see skipped. The port's prefill runs the flash kernel
+KV blocks, with the blocks that a causal, sliding-window or prefix-LM
+pattern cannot see skipped. The port's prefill runs the flash kernel
 (:mod:`repro_torch.kernels.flash_attention`); this function is the
 independent forward that :func:`repro_torch.models.transformer.fwd_hidden`
 computes, against which decode is checked.
@@ -34,11 +34,14 @@ def blockwise_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    prefix_len: int = 0,
     block_q: int = 512,
     block_kv: int = 512,
 ) -> torch.Tensor:
     """Online-softmax attention with statically skipped KV blocks;
-    returns ``[B, Sq, H, hd]`` in q's dtype."""
+    returns ``[B, Sq, H, hd]`` in q's dtype. With ``causal``, key ``j`` is
+    visible to query ``i`` if ``j <= i`` (and ``j > i - window``), or if
+    ``j < prefix_len`` (the bidirectional prefix of a prefix-LM)."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -53,6 +56,8 @@ def blockwise_attention(
             hi = min(nkv, -(-(q_hi + 1) // bk))
             lo = (max(0, (q_lo - window + 1) // bk) if window is not None
                   else 0)
+            if prefix_len:
+                lo, hi = 0, min(nkv, max(hi, -(-prefix_len // bk)))
             hi = max(hi, lo + 1)
         else:
             lo, hi = 0, nkv
@@ -73,6 +78,8 @@ def blockwise_attention(
                 ok = q_pos[:, None] >= kv_pos[None, :]
                 if window is not None:
                     ok &= kv_pos[None, :] > (q_pos[:, None] - window)
+                if prefix_len:
+                    ok |= kv_pos[None, :] < prefix_len
             s = torch.where(ok, s, torch.full_like(s, _NEG))
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])

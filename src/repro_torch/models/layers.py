@@ -17,8 +17,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense", "rms_norm", "rope_tables", "apply_rope", "embed",
-           "unembed_loss", "unembed_greedy", "mlp_swiglu", "causal_conv1d"]
+__all__ = ["dense", "rms_norm", "rope_tables", "apply_rope",
+           "sinusoidal_positions", "embed", "unembed_loss", "unembed_greedy",
+           "mlp_swiglu", "mlp_gelu", "matmul_f32", "causal_conv1d"]
 
 _F32 = torch.float32
 # Vocabulary rows of the unembedding converted to f32 at a time.
@@ -59,6 +60,19 @@ def apply_rope(x: torch.Tensor, rope: tuple) -> torch.Tensor:
     x1, x2 = x[..., :half].to(_F32), x[..., half:].to(_F32)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper's absolute position embeddings, f32 ``[..., S, d]`` for
+    ``positions [..., S]``: ``sin`` then ``cos`` of ``position x
+    exp(-i log(10000) / (d / 2 - 1))``."""
+    half = d // 2
+    dev = positions.device
+    step = torch.log(torch.tensor(10000.0, dtype=_F32, device=dev)) / (
+        half - 1)
+    freq = torch.exp(-torch.arange(half, dtype=_F32, device=dev) * step)
+    ang = positions[..., :, None].to(_F32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -108,6 +122,29 @@ def mlp_swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     u = dense(x, w_up)
     h = F.silu(g.to(_F32)).to(x.dtype) * u
     return torch.matmul(h, w_down)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D or batched 3-D) summed and returned in f32, as the
+    reference's ``preferred_element_type=f32`` products that are used
+    before any cast. On the card cuBLAS writes the f32 sums of bf16
+    products directly; on the CPU the operands are widened first (a
+    product of two bf16 values is exact in f32)."""
+    if a.is_cuda and a.dtype != _F32:
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=_F32)
+    return torch.matmul(a.to(_F32), b.to(_F32))
+
+
+def mlp_gelu(x, w1, b1, w2, b2) -> torch.Tensor:
+    """Whisper's FFN: ``gelu(x w1 + b1) w2 + b2``, with ``b1`` added in x's
+    dtype, the tanh-approximated gelu (``jax.nn.gelu``'s default) in f32,
+    and ``b2`` added in f32 to the unrounded down projection."""
+    h = dense(x, w1) + b1.to(x.dtype)
+    h = F.gelu(h.to(_F32), approximate="tanh").to(x.dtype)
+    out = matmul_f32(h.reshape(-1, h.shape[-1]), w2)
+    out = out.reshape(h.shape[:-1] + (w2.shape[-1],))
+    return (out + b2.to(_F32)).to(x.dtype)
 
 
 def causal_conv1d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,13 @@ Every leaf is described by a :class:`ParamDef` (its per-layer shape and
 how it is initialized). Stacked-layer leaves get a leading layer dim. The
 parameter tree has the reference's structure: ``embed``, ``final_norm``,
 ``blocks`` (one dict per pattern position, each leaf stacked
-``[reps, ...]``), ``tail`` (unstacked) and, unless tied, ``unembed``.
+``[reps, ...]``), ``tail`` (unstacked), unless tied ``unembed``, and for
+an encoder-decoder (whisper) ``enc_blocks`` (one dict, each leaf stacked
+``[n_enc_layers, ...]``) and ``enc_final_norm``. An attention block of
+whisper's decoder also holds its cross-attention (``xwq xwk xwv xwo
+xnorm``); whisper's FFN is a gelu MLP with biases (``w1 b1 w2 b2``), an
+MoE model's an expert bank behind a router (``w_router`` ``[d, E]``,
+``w_gate`` / ``w_up`` ``[E, d, f]``, ``w_down`` ``[E, f, d]``).
 
 The reference's mesh and FSDP machinery (``MeshSizes``, ``fsdp_dims``,
 partition specs) has no counterpart here: the port serves on one card.
@@ -33,19 +39,37 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
     return -(-v // multiple) * multiple
 
 
-def _attn_defs(cfg: ModelConfig) -> dict:
+def _attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pre = "x" if cross else ""
     return {
-        "wq": ParamDef((d, H * hd), scale=d ** -0.5),
-        "wk": ParamDef((d, KV * hd), scale=d ** -0.5),
-        "wv": ParamDef((d, KV * hd), scale=d ** -0.5),
-        "wo": ParamDef((H * hd, d), scale=(H * hd) ** -0.5),
-        "norm": ParamDef((d,), init="zeros"),
+        f"{pre}wq": ParamDef((d, H * hd), scale=d ** -0.5),
+        f"{pre}wk": ParamDef((d, KV * hd), scale=d ** -0.5),
+        f"{pre}wv": ParamDef((d, KV * hd), scale=d ** -0.5),
+        f"{pre}wo": ParamDef((H * hd, d), scale=(H * hd) ** -0.5),
+        f"{pre}norm": ParamDef((d,), init="zeros"),
     }
 
 
 def _mlp_defs(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.family == "audio":  # whisper: a gelu MLP with biases
+        return {
+            "w1": ParamDef((d, f), scale=d ** -0.5),
+            "b1": ParamDef((f,), init="zeros"),
+            "w2": ParamDef((f, d), scale=f ** -0.5),
+            "b2": ParamDef((d,), init="zeros"),
+            "norm2": ParamDef((d,), init="zeros"),
+        }
+    if cfg.moe is not None:
+        E = cfg.moe.n_experts
+        return {
+            "w_router": ParamDef((d, E), scale=d ** -0.5),
+            "w_gate": ParamDef((E, d, f), scale=d ** -0.5),
+            "w_up": ParamDef((E, d, f), scale=d ** -0.5),
+            "w_down": ParamDef((E, f, d), scale=f ** -0.5),
+            "norm2": ParamDef((d,), init="zeros"),
+        }
     return {
         "w_gate": ParamDef((d, f), scale=d ** -0.5),
         "w_up": ParamDef((d, f), scale=d ** -0.5),
@@ -94,22 +118,14 @@ def _ssd_defs(cfg: ModelConfig) -> dict:
     }
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP module item 4)")
-    if cfg.family == "audio" or cfg.enc_dec:
-        raise NotImplementedError(
-            "the encoder-decoder (whisper) model is not ported yet "
-            "(ROADMAP module item 4)")
-
-
-def block_defs(kind: str, cfg: ModelConfig) -> dict:
-    """Parameter defs for one block of the given kind: attention and
-    RG-LRU blocks with a dense SwiGLU FFN, SSD blocks without one."""
-    _check_supported(cfg)
+def block_defs(kind: str, cfg: ModelConfig, *, decoder: bool = False
+               ) -> dict:
+    """Parameter defs for one block of the given kind: attention (with
+    the cross-attention of an encoder-decoder's ``decoder``) and RG-LRU
+    blocks with their FFN, SSD blocks without one."""
     if kind.startswith("attn"):
-        return {**_attn_defs(cfg), **_mlp_defs(cfg)}
+        cross = _attn_defs(cfg, cross=True) if decoder and cfg.enc_dec else {}
+        return {**_attn_defs(cfg), **cross, **_mlp_defs(cfg)}
     if kind == "rglru":
         return {**_rglru_defs(cfg), **_mlp_defs(cfg)}
     if kind == "ssd":
@@ -132,11 +148,15 @@ def build_defs(cfg: ModelConfig) -> dict:
     tree: dict = {
         "embed": ParamDef((vp, cfg.d_model)),
         "final_norm": ParamDef((cfg.d_model,), init="zeros"),
-        "blocks": [block_defs(k, cfg) for k in cfg.block_pattern],
-        "tail": [block_defs(k, cfg) for k in tail],
+        "blocks": [block_defs(k, cfg, decoder=True)
+                   for k in cfg.block_pattern],
+        "tail": [block_defs(k, cfg, decoder=True) for k in tail],
     }
     if not cfg.tie_embeddings:
         tree["unembed"] = ParamDef((vp, cfg.d_model))
+    if cfg.enc_dec:
+        tree["enc_blocks"] = [block_defs("attn_full", cfg)]
+        tree["enc_final_norm"] = ParamDef((cfg.d_model,), init="zeros")
     return tree
 
 
@@ -187,10 +207,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         shape = ((n_stack,) if n_stack else ()) + d.shape
         return _leaf_init(d, shape, dtype, gen, device)
 
+    stacks = {"blocks": reps, "enc_blocks": cfg.n_enc_layers}
     out = {k: leaf(d) for k, d in defs.items()
-           if k not in ("blocks", "tail")}
-    out["blocks"] = [{k: leaf(d, reps) for k, d in blk.items()}
-                     for blk in defs["blocks"]]
+           if k not in ("blocks", "tail", "enc_blocks")}
+    for name, n in stacks.items():
+        if name in defs:
+            out[name] = [{k: leaf(d, n) for k, d in blk.items()}
+                         for blk in defs[name]]
     out["tail"] = [{k: leaf(d) for k, d in blk.items()}
                    for blk in defs["tail"]]
     return out

@@ -1,12 +1,18 @@
-"""Model trunk on one card: attention, RG-LRU and SSD blocks.
+"""Model trunk on one card: attention, RG-LRU and SSD blocks, whisper's
+encoder and paligemma's prefix.
 
 A model is a cycled ``block_pattern`` whose parameters are stacked per
 pattern position (``[reps, ...]``) plus an unstacked tail, with an
 embedding and an unembedding. An attention block is pre-norm
 self-attention (RoPE, GQA; sliding-window for ``attn_swa`` /
-``attn_local``) and a SwiGLU FFN; an RG-LRU block is the pre-norm Griffin
-recurrent block and a SwiGLU FFN; an SSD block is the pre-norm Mamba-2
-block alone. The prefill runs its attention through the flash kernel
+``attn_local``; prefix-LM over a VLM's patch embeddings), for whisper's
+decoder a pre-norm cross-attention over the encoder's output, and an FFN:
+SwiGLU, the top-k MoE of :mod:`repro_torch.models.moe`, or whisper's gelu
+MLP with biases. Whisper's positions are absolute (sinusoids added to
+the embeddings, no RoPE), and its encoder (:func:`encode_frames`) runs
+full attention over stub frame embeddings. An RG-LRU block is the
+pre-norm Griffin recurrent block and an FFN; an SSD block is the pre-norm
+Mamba-2 block alone. The prefill runs its attention through the flash kernel
 (:mod:`repro_torch.kernels.flash_attention`) and its scans through the
 SSD and RG-LRU kernels (the kernels on the card, their plain versions on
 the CPU); :func:`fwd_hidden`, the independent full forward that decode is
@@ -16,11 +22,8 @@ reference's does. :func:`fwd_train` is the training loss on
 :func:`fwd_hidden`, each block under ``torch.utils.checkpoint`` when the
 configuration asks for remat (the reference's ``jax.checkpoint`` of each
 superblock); the reference's training forward reaches no Pallas kernel,
-and neither does the port's.
-
-The reference's MoE, encoder and VLM-prefix blocks are not ported yet
-(ROADMAP module item 4); :func:`repro_torch.models.params.block_defs` raises
-for them.
+and neither does the port's. Training refuses what it does not train
+yet: recurrent blocks, MoE, the encoder-decoder and the VLM prefix.
 """
 from __future__ import annotations
 
@@ -31,14 +34,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import moe
 from repro_torch.models import params as pm
 from repro_torch.models.attention import blockwise_attention
-from repro_torch.models.layers import (apply_rope, dense, embed, mlp_swiglu,
-                                       rms_norm, rope_tables, unembed_loss)
+from repro_torch.models.layers import (apply_rope, dense, embed, mlp_gelu,
+                                       mlp_swiglu, rms_norm, rope_tables,
+                                       sinusoidal_positions, unembed_loss)
 from repro_torch.models.rglru import recurrent_block
 from repro_torch.models.ssd import ssd_block
 
-__all__ = ["Layer", "layers", "apply_block", "fwd_hidden", "fwd_train",
+__all__ = ["Layer", "layers", "ffn", "cross_kv", "apply_block",
+           "encode_frames", "positions_in", "fwd_hidden", "fwd_train",
            "Metrics"]
 
 _F32 = torch.float32
@@ -81,51 +87,91 @@ def layers(params: dict, cfg: ModelConfig) -> Iterator[Layer]:
         yield Layer(kind, params["tail"][i], li, i, None)
 
 
-def _flash(q, k, v, *, causal: bool, window: Optional[int]):
+def _flash(q, k, v, **kw):
     """The flash-attention wrapper on the model's ``[B, S, H, hd]`` layout
     (transposed views, no copies)."""
     o = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), causal=causal, window=window)
+                           v.transpose(1, 2), **kw)
     return o.transpose(1, 2)
 
 
-def _self_attention(x, p, cfg: ModelConfig, rope, *, kind: str,
-                    attend: Callable):
-    B, S, _ = x.shape
+def _qkv(h, p, cfg: ModelConfig):
+    """The projections ``q [B, S, H, hd]`` and ``k, v [B, S, KV, hd]``."""
+    B, S, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return (dense(h, p["wq"]).reshape(B, S, H, hd),
+            dense(h, p["wk"]).reshape(B, S, KV, hd),
+            dense(h, p["wv"]).reshape(B, S, KV, hd))
+
+
+def _self_attention(x, p, cfg: ModelConfig, rope, *, kind: str,
+                    attend: Callable, prefix_len: int = 0):
+    B, S, _ = x.shape
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = dense(h, p["wq"]).reshape(B, S, H, hd)
-    k = dense(h, p["wk"]).reshape(B, S, KV, hd)
-    v = dense(h, p["wv"]).reshape(B, S, KV, hd)
-    q = apply_rope(q, rope)
-    k = apply_rope(k, rope)
+    q, k, v = _qkv(h, p, cfg)
+    if cfg.family != "audio":  # whisper's positions are absolute
+        q = apply_rope(q, rope)
+        k = apply_rope(k, rope)
     window = cfg.window if kind in ("attn_swa", "attn_local") else None
-    o = attend(q, k, v, causal=True, window=window)
-    return dense(o.reshape(B, S, H * hd), p["wo"]), (k, v)
+    o = attend(q, k, v, causal=True, window=window, prefix_len=prefix_len)
+    return dense(o.reshape(B, S, -1), p["wo"]), (k, v)
 
 
-def _ffn(x, p, cfg: ModelConfig):
+def cross_kv(enc_out, p, cfg: ModelConfig):
+    """A decoder layer's cross-attention keys and values ``[B, T_enc, KV,
+    hd]`` from the encoder's output: the decode state it keeps."""
+    B, T, _ = enc_out.shape
+    shape = (B, T, cfg.n_kv_heads, cfg.head_dim)
+    return (dense(enc_out, p["xwk"]).reshape(shape),
+            dense(enc_out, p["xwv"]).reshape(shape))
+
+
+def _cross_attention(x, enc_out, p, cfg: ModelConfig, attend: Callable):
+    """Whisper's cross-attention: full attention of the decoder's queries
+    over the encoder's output."""
+    B, S, _ = x.shape
+    h = rms_norm(x, p["xnorm"], cfg.norm_eps)
+    q = dense(h, p["xwq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    o = attend(q, *cross_kv(enc_out, p, cfg), causal=False)
+    return dense(o.reshape(B, S, -1), p["xwo"])
+
+
+def ffn(x, p, cfg: ModelConfig):
+    """The pre-norm FFN of an attention or RG-LRU block over ``x [..., d]``:
+    the MoE, whisper's gelu MLP, or SwiGLU."""
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if cfg.moe is not None:
+        out = moe.moe_swiglu(h.reshape(-1, h.shape[-1]), p["w_router"],
+                             p["w_gate"], p["w_up"], p["w_down"], cfg.moe)
+        return out.y.reshape(h.shape)
+    if cfg.family == "audio":
+        return mlp_gelu(h, p["w1"], p["b1"], p["w2"], p["b2"])
     return mlp_swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
 
 def apply_block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
-                attend: Callable = _flash, capture: bool = False):
+                attend: Callable = _flash, capture: bool = False,
+                prefix_len: int = 0, enc_out=None):
     """One block over a sequence (``rope``: the positions' :func:`~
-    repro_torch.models.layers.rope_tables`). Returns ``(x, extras)``: the
-    new residual stream, and for an attention block its RoPE'd keys and
-    values ``[B, S, KV, hd]`` (the paged pools' layout), for a recurrent
-    block its decode state with ``capture`` (else None)."""
+    repro_torch.models.layers.rope_tables`, unused for whisper;
+    ``prefix_len``: the bidirectional prefix of a VLM; ``enc_out``: the
+    encoder's output, attended to by a decoder layer's cross-attention).
+    Returns ``(x, extras)``: the new residual stream, and for an attention
+    block its RoPE'd keys and values ``[B, S, KV, hd]`` (the paged pools'
+    layout), for a recurrent block its decode state with ``capture`` (else
+    None)."""
     if kind.startswith("attn"):
         delta, kv = _self_attention(x, p, cfg, rope, kind=kind,
-                                    attend=attend)
+                                    attend=attend, prefix_len=prefix_len)
         x = x + delta
-        return x + _ffn(x, p, cfg), kv
+        if enc_out is not None and "xwq" in p:
+            x = x + _cross_attention(x, enc_out, p, cfg, attend)
+        return x + ffn(x, p, cfg), kv
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     if kind == "rglru":
         delta, state = recurrent_block(h, p, capture=capture)
         x = x + delta
-        return x + _ffn(x, p, cfg), state
+        return x + ffn(x, p, cfg), state
     if kind == "ssd":
         delta, state = ssd_block(h, p, cfg.ssm or SSMConfig(),
                                  capture=capture)
@@ -133,27 +179,74 @@ def apply_block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
     raise ValueError(kind)
 
 
-def _remat_block(kind: str, x, p: dict, cfg: ModelConfig, rope):
-    return apply_block(kind, x, p, cfg, rope, attend=blockwise_attention)[0]
+def _remat_block(kind: str, x, p: dict, cfg: ModelConfig, rope,
+                 prefix_len: int = 0, enc_out=None):
+    return apply_block(kind, x, p, cfg, rope, attend=blockwise_attention,
+                       prefix_len=prefix_len, enc_out=enc_out)[0]
 
 
-def fwd_hidden(params: dict, tokens: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
-    """Token ids ``[B, S]`` -> final (normed) hidden states ``[B, S, d]``,
-    with blockwise attention. Under autograd with ``cfg.remat``, each block
-    keeps only its input and recomputes the rest in the backward pass."""
-    tokens = torch.as_tensor(tokens).to(params["embed"].device)
-    x = embed(tokens, params["embed"])
-    rope = rope_tables(torch.arange(x.shape[1], device=x.device)[None, :],
-                       cfg.head_dim, cfg.rope_theta)
+def encode_frames(frames, params: dict, cfg: ModelConfig, *,
+                  attend: Callable = _flash):
+    """Whisper's encoder over stub frame embeddings ``[B, T_enc, d]``:
+    sinusoidal positions, then each encoder layer's pre-norm full
+    self-attention and gelu MLP, then the final norm."""
+    T = frames.shape[1]
+    pos = torch.arange(T, device=frames.device)
+    x = frames + sinusoidal_positions(pos, cfg.d_model)[None].to(frames.dtype)
+    enc = params["enc_blocks"][0]
+    for i in range(cfg.n_enc_layers):
+        p = {k: w[i] for k, w in enc.items()}
+        B, S, _ = x.shape
+        h = rms_norm(x, p["norm"], cfg.norm_eps)
+        q, k, v = _qkv(h, p, cfg)
+        o = attend(q, k, v, causal=False)
+        x = x + dense(o.reshape(B, S, -1), p["wo"])
+        x = x + ffn(x, p, cfg)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def positions_in(x, cfg: ModelConfig, *, prefix_embeds=None):
+    """The input sequence of the decoder stack: the embeddings ``x [B, S,
+    d]`` after a VLM's prefix embeddings ``[B, P, d]`` (prefix-LM over
+    both), with whisper's sinusoidal positions added. Returns ``(x,
+    prefix_len, rope)``; ``rope`` is None for whisper."""
+    prefix_len = 0
+    if prefix_embeds is not None:
+        prefix_len = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(x.device, x.dtype), x], dim=1)
+    pos = torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "audio":
+        return (x + sinusoidal_positions(pos, cfg.d_model)[None].to(x.dtype),
+                prefix_len, None)
+    return x, prefix_len, rope_tables(pos[None, :], cfg.head_dim,
+                                      cfg.rope_theta)
+
+
+def fwd_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+               prefix_embeds=None, frames=None) -> torch.Tensor:
+    """Token ids ``[B, S]`` (after ``prefix_embeds [B, P, d]`` for a VLM;
+    attending to the encoded ``frames [B, T_enc, d]`` for whisper) ->
+    final (normed) hidden states ``[B, P + S, d]``, with blockwise
+    attention. Under autograd with ``cfg.remat``, each block keeps only its
+    input and recomputes the rest in the backward pass."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens).to(dev)
+    x, prefix_len, rope = positions_in(embed(tokens, params["embed"]), cfg,
+                                       prefix_embeds=prefix_embeds)
+    enc_out = None
+    if cfg.enc_dec:
+        if frames is None:
+            raise ValueError("whisper needs stub frame embeddings (frames)")
+        enc_out = encode_frames(torch.as_tensor(frames).to(dev), params, cfg,
+                                attend=blockwise_attention)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in layers(params, cfg):
         if remat:
             x = checkpoint(_remat_block, layer.kind, x, layer.p, cfg, rope,
-                           use_reentrant=False)
+                           prefix_len, enc_out, use_reentrant=False)
         else:
-            x, _ = apply_block(layer.kind, x, layer.p, cfg, rope,
-                               attend=blockwise_attention)
+            x = _remat_block(layer.kind, x, layer.p, cfg, rope, prefix_len,
+                             enc_out)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -168,7 +261,14 @@ def fwd_train(params: dict, batch: dict, cfg: ModelConfig, *,
     if not all(k.startswith("attn") for k in kinds):
         raise NotImplementedError(
             f"training {cfg.name}: the {sorted(kinds)} blocks' scans have no "
-            "gradient yet (ROADMAP module item 5)")
+            "gradient yet (ROADMAP module item 3)")
+    for what, unported in (("MoE", cfg.moe is not None),
+                           ("encoder-decoder", cfg.enc_dec),
+                           ("VLM-prefix", bool(cfg.vlm_prefix))):
+        if unported:
+            raise NotImplementedError(
+                f"training {cfg.name}: {what} models serve but do not train "
+                "yet (ROADMAP module item 3)")
     x = fwd_hidden(params, batch["tokens"], cfg)
     key = ("embed" if cfg.tie_embeddings or "unembed" not in params
            else "unembed")

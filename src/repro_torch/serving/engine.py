@@ -29,9 +29,20 @@ copied, and the paged-attention kernel dequantizes as it reads, to the
 reference's ``bf16(f32(q) * sc)``. The prefill's own attention runs on
 the K/V before they are quantized, as the reference's does.
 
-Scope: dense models of attention, RG-LRU and SSD blocks, one card
-(``page_axes=()``), KV in the parameters' dtype or int8. Everything else
-raises ``NotImplementedError`` naming its ROADMAP item.
+Whisper (an encoder-decoder) runs its encoder once at prefill over the
+request's stub frame embeddings (``extras["frames"]``) and keeps each
+decoder layer's cross-attention keys and values ``[B, T_enc, KV, hd]``
+in the decode state (``rec``'s ``ck`` / ``cv``); a decode step attends to
+them in plain PyTorch, as the reference does outside any Pallas kernel,
+and adds the sinusoid of the token's position (whisper has no RoPE).
+Paligemma's stub patch embeddings (``extras["prefix_embeds"]``) go before
+the prompt as a bidirectional prefix: the prefill's flash launches mask
+prefix-LM, and the pools, positions and lengths span prefix and text.
+An MoE model's FFN is :func:`repro_torch.models.moe.moe_swiglu` at
+prefill and decode.
+
+Scope: one card (``page_axes=()``), KV in the parameters' dtype or int8;
+page sharding raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,12 +57,16 @@ from repro_torch.core import online_learning as ol
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import params as pm
-from repro_torch.models.attention import Partial, combine_partials
-from repro_torch.models.layers import (apply_rope, dense, embed, mlp_swiglu,
-                                       rms_norm, rope_tables, unembed_greedy)
+from repro_torch.models.attention import (Partial, attention_partial,
+                                          combine_partials)
+from repro_torch.models.layers import (apply_rope, dense, embed, rms_norm,
+                                       rope_tables, sinusoidal_positions,
+                                       unembed_greedy)
 from repro_torch.models.rglru import recurrent_block_step
 from repro_torch.models.ssd import ssd_block_step
-from repro_torch.models.transformer import apply_block, layers
+from repro_torch.models.transformer import (apply_block, cross_kv,
+                                            encode_frames, ffn, layers,
+                                            positions_in)
 from repro_torch.serving import kvpool as kvp
 from repro_torch.serving.kvpool import KVSpec, PagedKV
 
@@ -85,14 +100,7 @@ def check_supported(cfg: ModelConfig, sc: ServeConfig) -> None:
     if sc.page_axes:
         raise NotImplementedError(
             "page sharding over several cards is not ported yet (ROADMAP "
-            "module item 6); use page_axes=()")
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE serving is not ported yet (ROADMAP "
-                                  "module item 4)")
-    if cfg.enc_dec or cfg.family == "audio" or cfg.vlm_prefix:
-        raise NotImplementedError(
-            "encoder-decoder and VLM-prefix serving are not ported yet "
-            "(ROADMAP module item 4)")
+            "module item 4); use page_axes=()")
 
 
 def _needs_kv(cfg: ModelConfig) -> bool:
@@ -125,7 +133,9 @@ def make_kv_spec(cfg: ModelConfig, sc: ServeConfig) -> KVSpec:
 
 
 def _rec_state_one(kind: str, cfg: ModelConfig, B: int, device) -> dict:
-    """A zero decode state of one recurrent layer ({} for attention)."""
+    """A zero decode state of one recurrent layer; of an attention layer
+    of an encoder-decoder its cross-attention keys and values, else
+    {}."""
     dt = getattr(torch, cfg.param_dtype)
 
     def z(shape, dtype):
@@ -139,6 +149,9 @@ def _rec_state_one(kind: str, cfg: ModelConfig, B: int, device) -> dict:
         return {"h": z((B, di // s.head_dim, s.state_dim, s.head_dim),
                        torch.float32),
                 "conv": z((B, s.conv_width - 1, di + 2 * s.state_dim), dt)}
+    if kind.startswith("attn") and cfg.enc_dec:
+        sh = (B, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+        return {"ck": z(sh, dt), "cv": z(sh, dt)}
     return {}
 
 
@@ -177,11 +190,12 @@ def _decode_attention(x, p, cfg: ModelConfig, pools, index, tables, li,
     B, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = dense(h, p["wq"]).reshape(B, 1, H, hd)
-    k_new = dense(h, p["wk"]).reshape(B, 1, KV, hd)
+    q = dense(h, p["wq"]).reshape(B, H, hd)
+    k_new = dense(h, p["wk"]).reshape(B, KV, hd)
     v_new = dense(h, p["wv"]).reshape(B, KV, hd)
-    q = apply_rope(q, rope)[:, 0]
-    k_new = apply_rope(k_new, rope)[:, 0]
+    if rope is not None:  # None: whisper's absolute positions
+        q = apply_rope(q[:, None], rope)[:, 0]
+        k_new = apply_rope(k_new[:, None], rope)[:, 0]
     scales = pools[2:] or (None, None)
     kvp.write_token_kv(pools[0], (k_new, v_new), index, li, scales[0])
     slot1, slot2, live = tables
@@ -194,9 +208,17 @@ def _decode_attention(x, p, cfg: ModelConfig, pools, index, tables, li,
     return dense(o.to(x.dtype).reshape(B, H * hd), p["wo"])
 
 
-def _decode_ffn(x, p, cfg: ModelConfig):
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return mlp_swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+def _decode_cross_attention(x, p, cfg: ModelConfig, ck, cv):
+    """Whisper's cross-attention at decode time over the layer's stored
+    keys and values ``[B, T_enc, KV, hd]``, in plain PyTorch (the
+    reference's ``attention_partial``, outside any Pallas kernel)."""
+    B, _ = x.shape
+    h = rms_norm(x, p["xnorm"], cfg.norm_eps)
+    q = dense(h, p["xwq"]).reshape(B, cfg.n_heads, cfg.head_dim)
+    valid = torch.ones(ck.shape[:2], dtype=torch.bool, device=ck.device)
+    part = attention_partial(q, ck, cv, valid)
+    o = part.acc / torch.clamp(part.l, min=1e-30)[..., None]
+    return dense(o.to(x.dtype).reshape(B, -1), p["xwo"])
 
 
 def _decode_tables(kv: PagedKV, spec: KVSpec, dev) -> tuple:
@@ -237,22 +259,29 @@ def make_decode_step(cfg: ModelConfig, sc: ServeConfig):
             kvp.write_back_evicted(pools, plan)
             index = kvp.token_index(plan, kv.lengths, spec, dev)
             tables = _decode_tables(kv, spec, dev)
-            rope = rope_tables(to_device(kv.lengths, dev)[:, None],
-                               cfg.head_dim, cfg.rope_theta)
+            pos = to_device(kv.lengths, dev)
+            rope = (None if cfg.family == "audio" else
+                    rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta))
         x = embed(to_device(torch.as_tensor(tokens), dev), params["embed"])
+        if cfg.family == "audio":
+            x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
         for layer in layers(params, cfg):
             p = layer.p
             if layer.kind.startswith("attn"):
                 x = x + _decode_attention(x, p, cfg, pools, index, tables,
                                           layer.li, rope, spec.window)
-                x = x + _decode_ffn(x, p, cfg)
+                if cfg.enc_dec:
+                    st = _layer_state(state, layer)
+                    x = x + _decode_cross_attention(x, p, cfg, st["ck"],
+                                                    st["cv"])
+                x = x + ffn(x, p, cfg)
                 continue
             st = _layer_state(state, layer)
             h = rms_norm(x, p["norm"], cfg.norm_eps)
             if layer.kind == "rglru":
                 out, new = recurrent_block_step(h, st, p)
                 x = x + out
-                x = x + _decode_ffn(x, p, cfg)
+                x = x + ffn(x, p, cfg)
             else:
                 out, new = ssd_block_step(h, st, p, ssm)
                 x = x + out
@@ -268,33 +297,43 @@ def make_decode_step(cfg: ModelConfig, sc: ServeConfig):
 
 
 def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
-    """The prefill ``(params, tokens [B, S]) -> (DecodeState, (first_token,
-    logprob))``: a full forward over the prompt that fills both pools and
-    sets the tier-1 residency (the newest pages resident), and captures
-    each recurrent layer's decode state."""
+    """The prefill ``(params, tokens [B, S], extras=None) -> (DecodeState,
+    (first_token, logprob))``: a full forward over the prompt that fills
+    both pools and sets the tier-1 residency (the newest pages resident),
+    and captures each recurrent layer's decode state. ``extras`` holds
+    whisper's stub frame embeddings (``"frames" [B, T_enc, d]``: the
+    encoder runs once, and each decoder layer's cross-attention keys and
+    values are kept) or a VLM's patch embeddings (``"prefix_embeds" [B,
+    P, d]``: a bidirectional prefix before the prompt, in the pools)."""
     check_supported(cfg, sc)
     spec = make_kv_spec(cfg, sc)
     reps, tail = pm.model_layout(cfg)
     needs_kv = _needs_kv(cfg)
 
-    def step(params, tokens):
+    def step(params, tokens, extras=None):
+        extras = extras or {}
         dev = params["embed"].device
         tokens = torch.as_tensor(tokens).to(dev)
-        B, S = tokens.shape
-        x = embed(tokens, params["embed"])
+        prefix = extras.get("prefix_embeds") if cfg.vlm_prefix else None
+        x, prefix_len, rope = positions_in(embed(tokens, params["embed"]),
+                                           cfg, prefix_embeds=prefix)
+        B, S = x.shape[:2]
+        enc_out = None
+        if cfg.enc_dec:
+            enc_out = encode_frames(torch.as_tensor(extras["frames"]).to(dev),
+                                    params, cfg)
         kv = None
         if needs_kv:
             kv = kvp.init_paged_kv(spec, device=dev)
             kv = kvp.prefill_residency(kv, spec,
                                        torch.full((B,), S, dtype=torch.int32))
-        rope = rope_tables(torch.arange(S, device=dev)[None, :],
-                           cfg.head_dim, cfg.rope_theta)
         pad_s = (-S) % spec.page_size
         states = [[None] * reps for _ in cfg.block_pattern]
         rec_tail = []
         for layer in layers(params, cfg):
             x, ex = apply_block(layer.kind, x, layer.p, cfg, rope,
-                                capture=True)
+                                capture=True, prefix_len=prefix_len,
+                                enc_out=enc_out)
             st = {}
             if layer.kind.startswith("attn"):
                 k, v = ex
@@ -303,6 +342,9 @@ def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
                     v = F.pad(v, (0, 0, 0, 0, 0, pad_s))
                 kvp.prefill_write(kvp.pools_of(kv, spec), kv, spec,
                                   layer.li, k, v)
+                if enc_out is not None:
+                    st = dict(zip(("ck", "cv"),
+                                  cross_kv(enc_out, layer.p, cfg)))
             else:
                 st = ex
             if layer.rep is None:

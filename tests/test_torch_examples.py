@@ -1,4 +1,4 @@
-"""The port's examples on the CPU: each of the nine runs through its
+"""The port's examples on the CPU: each of the ten runs through its
 ``main(["--device", "cpu", ...])`` and prints its ``<name> OK`` line.
 
 ``stream_replay`` runs at 6,000 requests in chunks of 1,024 (its
@@ -25,6 +25,7 @@ EXAMPLES = {
     "configure_from_model": [],
     "burst_response": [],
     "warmup_curve": [],
+    "serve_paged": [],
 }
 
 
@@ -51,6 +52,9 @@ def test_example_runs_on_cpu(name, capsys):
         assert "bit-identical to the scan engine: True" in text
     if name == "end_to_end":
         assert "lam_eff=86.6 (published: 86.6)" in text
+    if name == "serve_paged":  # 31 decode steps past 4 x 32-token prompts
+        assert out["lengths"] == [63] * 4 and out["t2_reads"] > 0
+        assert np.isfinite(out["logprobs"]).all()
 
 
 def test_train_tiered_runs_and_resumes(tmp_path, monkeypatch, capsys):

@@ -23,8 +23,10 @@ by ``params_from_numpy``:
 - the one-launch whole-slot write-back against the reference's per-layer
   write-back, pools equal bit for bit over 48 steps with evictions;
 - the inclusion invariant of ``tests/test_serving.py``;
-- ``NotImplementedError`` for what the slice does not serve, and int8 KV
-  pools served (their parity with the reference is
+- ``NotImplementedError`` for page sharding, which the port does not
+  serve, and for training the MoE, encoder-decoder and VLM-prefix
+  families, which it serves (``tests/test_torch_serving_breadth.py``) but
+  does not train; and int8 KV pools served (their parity with the reference is
   ``tests/test_torch_int8_kv.py``).
 """
 import dataclasses
@@ -353,10 +355,7 @@ def test_one_launch_write_back_and_inclusion(hbm_fraction):
 
 
 @pytest.mark.parametrize("name,over,match", [
-    ("mixtral-8x22b", {}, "MoE"),
     ("mamba2-370m", {"page_axes": ("model",)}, "several cards"),
-    ("whisper-tiny", {}, "encoder-decoder"),
-    ("paligemma-3b", {}, "VLM"),
     ("stablelm-3b", {"page_axes": ("model",)}, "several cards"),
 ])
 def test_unsupported_raises(name, over, match):
@@ -366,6 +365,22 @@ def test_unsupported_raises(name, over, match):
         teng.make_decode_step(cfg, sc)
     with pytest.raises(NotImplementedError, match=match):
         teng.make_prefill_step(cfg, sc)
+
+
+@pytest.mark.parametrize("name,match", [
+    ("mixtral-8x22b", "MoE"),
+    ("whisper-tiny", "encoder-decoder"),
+    ("paligemma-3b", "VLM"),
+])
+def test_training_refuses_unported_families(name, match):
+    """These families serve (``tests/test_torch_serving_breadth.py``) but
+    do not train yet: ``fwd_train`` refuses them, naming the ROADMAP item,
+    before it reads the parameters or the batch (it would otherwise train
+    paligemma without its prefix and whisper without its encoder)."""
+    from repro_torch.models.transformer import fwd_train
+    cfg = T_ARCHS[name].reduced()
+    with pytest.raises(NotImplementedError, match=f"{match}.*item 3"):
+        fwd_train({}, {}, cfg)
 
 
 @pytest.mark.parametrize("name", ["recurrentgemma-9b", "stablelm-3b"])
