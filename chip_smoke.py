@@ -121,11 +121,26 @@ It prints:
   launches on their paths, its agreement with the plain version, its time, the plain
   version's time and its bound, term by term (paged attention's time in
   a loop of wrapper calls, and from a CUDA graph of the kernel's launches
-  alone as ``ms_graph``; the cache scan's chunked replay under
+  alone as ``ms_graph``; page copy's ``ms`` a loop of 5 wrapper calls with
+  the index vectors on the CPU, as the engine's write-back and promotion
+  pass them (after 5 untimed calls), ``ms_blocking`` the same loop with
+  the index vectors first moved to the card by blocking copies from
+  pageable memory (what the wrapper did before it moved them through
+  pinned memory; the two loops alternate, each key the median of three),
+  ``ms_cold`` its launch alone with int32 indices already on the card,
+  each launch between its own CUDA events after the 50 MB L2 is flushed
+  by writing 256 MiB, the median of 25, held against the bound,
+  ``library_ms_cold`` ``dst[di] = src[si]`` timed the same way,
+  ``library_ms`` a loop of 5 of those warm, ``ms_graph`` the
+  launch replayed warm from a CUDA graph (not held against the bound: it
+  may read from L2); the cache scan's chunked replay under
   ``chunked_`` keys; paged attention's int8 variant under ``int8_``
-  keys; flash, paged attention and page copy at phases 17-19's shapes
-  under ``whisper_enc_`` / ``whisper_cross_`` / ``whisper_self_`` (flash)
-  or ``whisper_``, ``vlm_prefix_`` and ``moe_`` keys);
+  keys, page copy's under ``int8_`` (its scale rows under
+  ``int8_scale_``) and at phase 12's shape under
+  ``recurrentgemma_``; flash, paged attention and page copy at phases
+  17-19's shapes under ``whisper_enc_`` / ``whisper_cross_`` /
+  ``whisper_self_`` (flash) or ``whisper_``, ``vlm_prefix_`` and ``moe_``
+  keys);
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits nonzero. Without CUDA, or without the
@@ -250,6 +265,10 @@ TRAIN_CPU_TOL = dict(rel=1e-5, lr_frac_per_step=0.1)
 # 5.8 GB snapshot): 5 steps uninterrupted; killed after step index 3 with
 # a tier-1 snapshot every 3 steps (one, at step 3); resumed to step 5.
 DRILL = dict(layers=2, steps=5, kill_at=3, tier1_every=3)
+# Page copy's cold times (``cold_ms``): the median of COLD_REPS calls,
+# each after writing L2_FLUSH_BYTES (five times the H100's 50 MB L2).
+L2_FLUSH_BYTES = 256 * 2**20
+COLD_REPS = 25
 PROFILE_STEPS = 4  # decode steps traced with torch.profiler
 CONTROL_STEPS = 24  # decode steps of the noise-floor run
 # Phase 15: the configurator on the test size of tests/test_system.py, on
@@ -1328,6 +1347,133 @@ def _copy_bound(n_rows: int, row_bytes: int) -> dict:
                               / HBM_BYTES_PER_S)), bytes=2 * n_rows * row_bytes)
 
 
+def _view_into(buf, whole, d):
+    """``d``, a view into ``whole``, as the same view into ``buf``, a copy
+    of ``whole``."""
+    off = (d.data_ptr() - whole.data_ptr()) // whole.element_size()
+    return buf.view(-1)[off:].as_strided(d.shape, d.stride())
+
+
+def check_page_copy(tag: str, cases) -> None:
+    """Page copy byte for byte on the card: for each ``(name, whole, dst,
+    src, di, si)`` (``dst`` a view into the pool ``whole``), the kernel and
+    the plain version, each on its own copy of ``whole``."""
+    from repro_torch.kernels import page_gather as pg
+    from repro_torch.kernels.ref import page_copy_ref
+    for name, whole, d, s_, i_d, i_s in cases:
+        outs = []
+        for fn in (pg.page_copy_cuda, page_copy_ref):
+            buf = whole.clone()
+            fn(_view_into(buf, whole, d), s_, i_d, i_s)
+            torch.cuda.synchronize()
+            outs.append(buf.view(torch.uint8).view(-1))
+        if not torch.equal(*outs):
+            raise AssertionError(f"[{tag}] page copy kernel != plain "
+                                 f"({name})")
+        del outs, buf
+
+
+def _live_pairs(di, si) -> int:
+    """The pairs of a page copy that move a row (neither index -1)."""
+    return int(((di >= 0) & (si >= 0)).sum())
+
+
+def cold_ms(fn, reps: int = COLD_REPS) -> float:
+    """Median device time of one ``fn()`` called cold: before each call a
+    buffer of ``L2_FLUSH_BYTES`` is written, which flushes the 50 MB L2,
+    and each call runs between its own CUDA events. The card first spins
+    while the host enqueues every call, so that no call waits for the
+    host."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(reps)]
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~25 ms at 1.98 GHz
+    for start, stop in events:
+        flush.fill_(1)
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def page_copy_times(tag: str, whole, dst, src, di, si) -> dict:
+    """Page copy's times on a captured population (``dst`` a view into the
+    pool ``whole``, timed on a copy of it), under the kernels line's
+    page-copy keys:
+
+    - ``ms``: a loop of 5 wrapper calls with the index vectors on the CPU,
+      as the engine's write-back and promotion pass them (their pinned
+      copies to the card included), as row 4 of PERF.md was timed before,
+      after 5 untimed calls: a serving engine's steady state, in which
+      PyTorch's caching host allocator holds the pinned blocks;
+    - ``ms_blocking``: the same loop, after the same warm-up, with the
+      host range test and then two blocking copies of the index vectors
+      from pageable memory to the card, as the wrapper did before it moved
+      them through pinned memory; the two loops alternate, three times
+      each, and each key is the median of its three;
+    - ``ms_cold``: the launch alone, the indices already int32 on the
+      card, cold (:func:`cold_ms`); ``library_ms_cold``: ``dst[di] =
+      src[si]`` with int64 indices on the card, timed the same way;
+    - ``ms_graph``: the launch alone replayed warm from a CUDA graph;
+    - ``library_ms``: a loop of 5 library calls, warm; ``plain_ms``.
+
+    Fails if a cold kernel time is under the bound."""
+    from repro_torch.kernels import page_gather as pg
+    from repro_torch.kernels.ref import page_copy_ref
+    dev = whole.device
+    buf = whole.clone()
+    view = _view_into(buf, whole, dst)
+    di_cpu, si_cpu = di.cpu(), si.cpu()
+    live = (di_cpu >= 0) & (si_cpu >= 0)
+    di_card, si_card = (x.to(dev, torch.int32) for x in (di_cpu, si_cpu))
+    ldi, lsi = (x[live].long().to(dev) for x in (di_cpu, si_cpu))
+    row_bytes = view[0].numel() * view.element_size()
+    cb = _copy_bound(int(live.sum()), row_bytes)
+
+    def launch():
+        return pg.page_copy_cuda(view, src, di_card, si_card)
+
+    def library():
+        view[ldi] = src[lsi]
+
+    def engine_call():
+        return pg.page_copy_cuda(view, src, di_cpu, si_cpu)
+
+    def blocking_call():
+        for x in (di_cpu, si_cpu):
+            int(x.min()), int(x.max())
+        return pg.page_copy_cuda(view, src, di_cpu.to(dev, torch.int32),
+                                 si_cpu.to(dev, torch.int32))
+    loops = dict(ms=engine_call, ms_blocking=blocking_call)
+    for fn in loops.values():
+        cuda_ms(fn, reps=5)
+    rounds = [{k: cuda_ms(fn, reps=5)[0] for k, fn in loops.items()}
+              for _ in range(3)]
+    out = {k: float(np.median([r[k] for r in rounds])) for k in loops}
+    out["ms_cold"] = cold_ms(launch)
+    out["library_ms_cold"] = cold_ms(library)
+    out["library_ms"], _ = cuda_ms(library, reps=5)
+    out["ms_graph"] = graph_ms(launch)
+    out["plain_ms"], _ = cuda_ms(lambda: page_copy_ref(view, src, di_cpu,
+                                                       si_cpu))
+    check_over_bound(f"{tag} page copy ms_cold", out["ms_cold"],
+                     cb["bound_ms"])
+    out.update(bound_ms=cb["bound_ms"], bound_by=cb["bound_by"],
+               bound_terms=cb["bound_terms"])
+    log(f"[{tag}, page copy times] {int(live.sum())} pages of {row_bytes} "
+        f"B: cold {out['ms_cold']:.4f} ms, dst[di] = src[si] cold "
+        f"{out['library_ms_cold']:.4f} ms; from a CUDA graph "
+        f"{out['ms_graph']:.4f} ms; a loop of wrapper calls with CPU "
+        f"indices {out['ms']:.4f} ms (with blocking index copies "
+        f"{out['ms_blocking']:.4f} ms), of dst[di] = src[si] "
+        f"{out['library_ms']:.4f} ms; plain {out['plain_ms']:.3f} ms; "
+        f"{fmt_bound(cb)} [{card_line()}]")
+    return out
+
+
 def _build_serve(S: dict, dev):
     """A serve's configuration at full width, its depth cut to
     ``S["layers"]`` where given, and random bf16 parameters from seed 0."""
@@ -1405,8 +1551,7 @@ def phase_serve(dev=torch.device("cuda")) -> tuple:
     from repro_torch.kernels import page_gather as pg
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import plain_versions
-    from repro_torch.kernels.ref import (attention_ref, page_copy_ref,
-                                         paged_attention_ref)
+    from repro_torch.kernels.ref import attention_ref, paged_attention_ref
     from repro_torch.launch import serve
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1685,43 +1830,14 @@ def phase_serve(dev=torch.device("cuda")) -> tuple:
     cases = (("prefill population", pool2, dst, src, di, si),
              ("write-back", pool2, pool2, pool1, wb_dst, wb_src),
              ("promotion", pool1, pool1, pool2, pr_dst, pr_src))
-    for name, whole, d, s_, i_d, i_s in cases:
-        off = (d.data_ptr() - whole.data_ptr()) // whole.element_size()
-        outs = []
-        for fn in (pg.page_copy_cuda, page_copy_ref):
-            buf = whole.clone()
-            view = buf.view(-1)[off:].as_strided(d.shape, d.stride())
-            fn(view, s_, i_d, i_s)
-            torch.cuda.synchronize()
-            outs.append(buf)
-        if not torch.equal(outs[0].view(torch.uint8).view(-1),
-                           outs[1].view(torch.uint8).view(-1)):
-            raise AssertionError(f"page copy kernel != plain ({name})")
-        del outs, buf
+    check_page_copy("serve", cases)
+    copy_times = page_copy_times("serve", pool2, dst, src, di, si)
     row_bytes = dst[0].numel() * dst.element_size()
-    live = ((di >= 0) & (si >= 0))
-    buf = pool2.clone()
-    view = buf.view(-1)[(dst.data_ptr() - pool2.data_ptr())
-                        // pool2.element_size():].as_strided(dst.shape,
-                                                              dst.stride())
-    c_ms, _ = cuda_ms(lambda: pg.page_copy_cuda(view, src, di, si), reps=5)
-    cp_ms, _ = cuda_ms(lambda: page_copy_ref(view, src, di, si))
-    ldi = di[live].long().to(dev)
-    lsi = si[live].long().to(dev)
-
-    def library():
-        view[ldi] = src[lsi]
-    library()
-    c_lib, _ = cuda_ms(library, reps=5)
-    del buf, view
-    cb = _copy_bound(int(live.sum()), row_bytes)
     log(f"[serve, page copy vs plain] prefill population (layer 0, "
-        f"{int(live.sum())} pages of {row_bytes} B into tier 2), a "
+        f"{_live_pairs(di, si)} pages of {row_bytes} B into tier 2), a "
         f"whole-slot write-back ({len(res)} slots of "
         f"{pool1[0].numel() * 2} B) and a whole-slot promotion (2 slots): "
-        f"equal byte for byte; prefill population: kernel {c_ms:.3f} ms, "
-        f"plain {cp_ms:.3f} ms, dst[di] = src[si] {c_lib:.3f} ms, "
-        f"{fmt_bound(cb)}")
+        f"equal byte for byte")
 
     _profile_decode(cfg, params, run, S, dev)
     bf16_run = dict(kv=kv._replace(pool1=None, pool2=None, scale1=None,
@@ -1756,10 +1872,9 @@ def phase_serve(dev=torch.device("cuda")) -> tuple:
                     f"{list(pool1.shape)} / {list(pool2.shape)} bf16"),
         entry("page_copy", "page_copy.cu",
               "src/repro/kernels/page_gather.py:37", max_abs_err=0.0,
-              ms=c_ms, plain_ms=cp_ms, bound_ms=cb["bound_ms"],
-              bound_by=cb["bound_by"], bound_terms=cb["bound_terms"],
-              library_ms=c_lib,
-              shape=f"{int(live.sum())} rows of {row_bytes} B into one layer "
+              **copy_times,
+              shape=f"{_live_pairs(di, si)} rows of {row_bytes} B into "
+                    f"one layer "
                     f"of tier 2 (prefill population)"),
     ], bf16_run
 
@@ -2116,8 +2231,7 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import plain_versions
     from repro_torch.kernels import rglru_scan as kr
-    from repro_torch.kernels.ref import (attention_ref, page_copy_ref,
-                                         paged_attention_ref)
+    from repro_torch.kernels.ref import attention_ref, paged_attention_ref
     from repro_torch.launch import serve
     from repro_torch.models import rglru as rg
     from repro_torch.serving import engine as eng
@@ -2339,24 +2453,10 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
     # Page copy: the first prefill population, byte for byte.
     dst, src, di, si = cap["copy"]
     whole = kv.pool2
-    off = (dst.data_ptr() - whole.data_ptr()) // whole.element_size()
-    outs = []
-    for fn in (pg.page_copy_cuda, page_copy_ref):
-        buf = whole.clone()
-        view = buf.view(-1)[off:].as_strided(dst.shape, dst.stride())
-        fn(view, src, di, si)
-        torch.cuda.synchronize()
-        outs.append(buf)
-    if not torch.equal(outs[0].view(torch.uint8), outs[1].view(torch.uint8)):
-        raise AssertionError(f"[{tag}] page copy kernel != plain")
-    view = outs[0].view(-1)[off:].as_strided(dst.shape, dst.stride())
-    c_ms, _ = cuda_ms(lambda: pg.page_copy_cuda(view, src, di, si), reps=5)
-    live_rows = int(((di >= 0) & (si >= 0)).sum())
-    cb = _copy_bound(live_rows, dst[0].numel() * dst.element_size())
-    del outs, view
+    check_page_copy(tag, [("prefill population", whole, dst, src, di, si)])
+    copy_times = page_copy_times(tag, whole, dst, src, di, si)
     log(f"[{tag}, page copy vs plain] prefill population of layer 2 into "
-        f"tier 2 ({live_rows} pages): equal byte for byte; kernel "
-        f"{c_ms:.3f} ms, {fmt_bound(cb)}")
+        f"tier 2 ({_live_pairs(di, si)} pages): equal byte for byte")
     _profile_decode(cfg, params, run, S, dev, tag=tag)
     del run, run_h, params
     rglru = dict(
@@ -2382,8 +2482,8 @@ def phase_rglru_serve(dev=torch.device("cuda")) -> tuple:
                              recurrentgemma_launches=launches[
                                  "paged_attention"],
                              recurrentgemma_max_abs_err=p_err),
-        page_copy=dict(recurrentgemma_ms=c_ms,
-                       recurrentgemma_bound_ms=cb["bound_ms"],
+        page_copy=dict({f"recurrentgemma_{k}": v
+                        for k, v in copy_times.items()},
                        recurrentgemma_launches=launches["page_copy"]))
     return rglru, at_rg
 
@@ -3051,7 +3151,7 @@ def phase_int8_serve(bf16_run: dict, dev=torch.device("cuda")) -> dict:
     from repro_torch.kernels import page_gather as pg
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import plain_versions
-    from repro_torch.kernels.ref import page_copy_ref, paged_attention_ref
+    from repro_torch.kernels.ref import paged_attention_ref
     from repro_torch.launch import serve
     gc.collect()  # the previous phases' models
     torch.cuda.empty_cache()
@@ -3246,36 +3346,20 @@ def phase_int8_serve(bf16_run: dict, dev=torch.device("cuda")) -> dict:
              for k, whole in (("copy", kv.pool2), ("copy_scale", kv.scale2))]
     cases += [(f"write-back ({lo.dtype})", up, up, lo, wb_dst, wb_src)
               for lo, up in ((kv.pool1, kv.pool2), (kv.scale1, kv.scale2))]
-    for name, whole, d, s_, i_d, i_s in cases:
-        off = (d.data_ptr() - whole.data_ptr()) // whole.element_size()
-        outs = []
-        for fn in (pg.page_copy_cuda, page_copy_ref):
-            buf = whole.clone()
-            view = buf.view(-1)[off:].as_strided(d.shape, d.stride())
-            fn(view, s_, i_d, i_s)
-            torch.cuda.synchronize()
-            outs.append(buf)
-        if not torch.equal(outs[0].view(torch.uint8).view(-1),
-                           outs[1].view(torch.uint8).view(-1)):
-            raise AssertionError(f"[int8 serve] page copy kernel != plain "
-                                 f"({name})")
-        del outs, buf, view
+    check_page_copy("int8 serve", cases)
     dst, src, di, si = cap["copy"]
-    live_rows = int(((di >= 0) & (si >= 0)).sum())
     row_bytes = dst[0].numel() * dst.element_size()
-    buf = kv.pool2.clone()
-    view = buf.view(-1)[(dst.data_ptr() - kv.pool2.data_ptr()):].as_strided(
-        dst.shape, dst.stride())
-    c_ms, _ = cuda_ms(lambda: pg.page_copy_cuda(view, src, di, si), reps=5)
-    cb = _copy_bound(live_rows, row_bytes)
-    del buf, view
+    copy_times = page_copy_times("int8 serve", kv.pool2, dst, src, di, si)
     log(f"[int8 serve, page copy vs plain] layer 0's prefill population "
-        f"({live_rows} int8 pages of {row_bytes} B and their scale rows of "
-        f"{cap['copy_scale'][0][0].numel() * 4} B into tier 2) and a "
+        f"({_live_pairs(di, si)} int8 pages of {row_bytes} B and their "
+        f"scale rows "
+        f"of {cap['copy_scale'][0][0].numel() * 4} B into tier 2) and a "
         f"whole-slot write-back ({len(res)} slots of "
         f"{kv.pool1[0].numel()} B and their scales of "
-        f"{kv.scale1[0].numel() * 4} B): equal byte for byte; int8 prefill "
-        f"population: kernel {c_ms:.3f} ms, {fmt_bound(cb)}")
+        f"{kv.scale1[0].numel() * 4} B): equal byte for byte")
+    # The scale rows' population, timed as the pages' is.
+    scale_times = page_copy_times("int8 serve, scale rows", kv.scale2,
+                                  *cap["copy_scale"])
     _profile_decode(cfg, params, run, S, dev, tag="int8 serve",
                     kv_dtype="int8")
     log(f"[int8 serve] phase 16 took {time.perf_counter() - t_phase:.1f} s "
@@ -3292,8 +3376,10 @@ def phase_int8_serve(bf16_run: dict, dev=torch.device("cuda")) -> dict:
                        f"int8 pools {list(kv.pool1.shape)} / "
                        f"{list(kv.pool2.shape)} with f32 scales"),
         flash_attention=dict(int8_launches=launches["flash_attention"]),
-        page_copy=dict(int8_launches=launches["page_copy"], int8_ms=c_ms,
-                       int8_bound_ms=cb["bound_ms"]))
+        page_copy=dict({f"int8_{k}": v for k, v in copy_times.items()},
+                       **{f"int8_scale_{k}": v
+                          for k, v in scale_times.items()},
+                       int8_launches=launches["page_copy"]))
 
 
 def _sdpa_mask(q, k, kw) -> dict:
@@ -3386,7 +3472,7 @@ def phase_family_serve(S: dict, dev=torch.device("cuda")) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import page_gather as pg
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels.ref import page_copy_ref, paged_attention_ref
+    from repro_torch.kernels.ref import paged_attention_ref
     from repro_torch.launch import serve
     from repro_torch.models import moe
     from repro_torch.models.attention import blockwise_attention
@@ -3585,33 +3671,11 @@ def phase_family_serve(S: dict, dev=torch.device("cuda")) -> dict:
     # Page copy: the first prefill population, byte for byte.
     dst, src, di, si = cap["copy"]
     whole = kv.pool2
-    off = (dst.data_ptr() - whole.data_ptr()) // whole.element_size()
-    outs = []
-    for fn in (pg.page_copy_cuda, page_copy_ref):
-        buf = whole.clone()
-        view = buf.view(-1)[off:].as_strided(dst.shape, dst.stride())
-        fn(view, src, di, si)
-        torch.cuda.synchronize()
-        outs.append(buf)
-    if not torch.equal(outs[0].view(torch.uint8), outs[1].view(torch.uint8)):
-        raise AssertionError(f"[{tag}] page copy kernel != plain")
-    view = outs[0].view(-1)[off:].as_strided(dst.shape, dst.stride())
-    c_ms, _ = cuda_ms(lambda: pg.page_copy_cuda(view, src, di, si), reps=5)
-    cp_ms, _ = cuda_ms(lambda: page_copy_ref(view, src, di, si))
-    live = (di >= 0) & (si >= 0)
-    ldi, lsi = di[live].long().to(dev), si[live].long().to(dev)
-
-    def library():
-        view[ldi] = src[lsi]
-    library()
-    c_lib, _ = cuda_ms(library, reps=5)
-    row_bytes = dst[0].numel() * dst.element_size()
-    cb = _copy_bound(int(live.sum()), row_bytes)
-    del outs, view
+    check_page_copy(tag, [("prefill population", whole, dst, src, di, si)])
+    copy_times = page_copy_times(tag, whole, dst, src, di, si)
     log(f"[{tag}, page copy vs plain] prefill population of layer 0 into "
-        f"tier 2 ({int(live.sum())} pages of {row_bytes} B): equal byte for "
-        f"byte; kernel {c_ms:.3f} ms, plain {cp_ms:.3f} ms, dst[di] = "
-        f"src[si] {c_lib:.3f} ms, {fmt_bound(cb)}")
+        f"tier 2 ({_live_pairs(di, si)} pages of "
+        f"{dst[0].numel() * dst.element_size()} B): equal byte for byte")
 
     if cfg.enc_dec:  # the plain cross-attention of a decode step
         x, p, cfg_, ck, cv = cap["cross"]
@@ -3645,10 +3709,8 @@ def phase_family_serve(S: dict, dev=torch.device("cuda")) -> dict:
          f"{key}_shape": f"both tiers of layer 0 at the last decode step, q "
                          f"{list(pcalls[0][0].shape)}, pools "
                          f"{list(kv.pool1.shape)} / {list(kv.pool2.shape)}"}),
-        page_copy={f"{key}_launches": launches["page_copy"],
-                   f"{key}_ms": c_ms, f"{key}_plain_ms": cp_ms,
-                   f"{key}_bound_ms": cb["bound_ms"],
-                   f"{key}_library_ms": c_lib})
+        page_copy=dict({f"{key}_{k}": v for k, v in copy_times.items()},
+                       **{f"{key}_launches": launches["page_copy"]}))
     for kind, f in flash.items():
         fk = S["flash_keys"][kind]
         out["flash_attention"].update({

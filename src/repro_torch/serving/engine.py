@@ -322,12 +322,14 @@ def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
         if cfg.enc_dec:
             enc_out = encode_frames(torch.as_tensor(extras["frames"]).to(dev),
                                     params, cfg)
-        kv = None
+        kv = index = None
+        pad_s = (-S) % spec.page_size
         if needs_kv:
             kv = kvp.init_paged_kv(spec, device=dev)
             kv = kvp.prefill_residency(kv, spec,
                                        torch.full((B,), S, dtype=torch.int32))
-        pad_s = (-S) % spec.page_size
+            # Every layer's page-copy indices, on the card once a prefill.
+            index = kvp.prefill_index(kv, (S + pad_s) // spec.page_size, dev)
         states = [[None] * reps for _ in cfg.block_pattern]
         rec_tail = []
         for layer in layers(params, cfg):
@@ -341,7 +343,7 @@ def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
                     k = F.pad(k, (0, 0, 0, 0, 0, pad_s))
                     v = F.pad(v, (0, 0, 0, 0, 0, pad_s))
                 kvp.prefill_write(kvp.pools_of(kv, spec), kv, spec,
-                                  layer.li, k, v)
+                                  layer.li, k, v, index)
                 if enc_out is not None:
                     st = dict(zip(("ck", "cv"),
                                   cross_kv(enc_out, layer.p, cfg)))

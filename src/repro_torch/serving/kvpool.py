@@ -57,7 +57,8 @@ from repro_torch.storage.cache_state import CacheState, init_cache
 
 __all__ = ["KVSpec", "PagedKV", "AllocPlan", "init_paged_kv", "alloc_step",
            "write_back_evicted", "token_index", "write_token_kv", "read_pages",
-           "prefill_residency", "prefill_write", "promote_pages",
+           "prefill_residency", "prefill_index", "prefill_write",
+           "promote_pages",
            "read_window_start", "n_attn_layers", "pools_of", "quantize"]
 
 _I32 = torch.int32
@@ -416,12 +417,25 @@ def prefill_residency(kv: PagedKV, spec: KVSpec,
                        lengths=prompt_len, t=torch.zeros(1, dtype=_I32))
 
 
+def prefill_index(kv: PagedKV, npg: int, device=None) -> tuple:
+    """The index vectors of every layer's :func:`prefill_write` of ``npg``
+    pages a sequence: the pages in order, their tier-2 slots and their
+    tier-1 slots (-1 where not resident). With a card ``device`` they are
+    moved there once a prefill, in one copy without a host synchronization
+    (``page_gather.card_index``); else they stay on the host."""
+    idx = (torch.arange(kv.t2_slot.shape[0] * npg, dtype=_I32),
+           kv.t2_slot[:, :npg].reshape(-1), kv.page_slot[:, :npg].reshape(-1))
+    return idx if device is None else pg.card_index(device, *idx)
+
+
 def prefill_write(pools, kv: PagedKV, spec: KVSpec, li: int,
-                  k: torch.Tensor, v: torch.Tensor) -> None:
+                  k: torch.Tensor, v: torch.Tensor, index=None) -> None:
     """Write one layer's prefill KV (``[B, S, KV, hd]``, S a page multiple)
     into both pools with two page-copy launches: every page into
     tier 2, the resident ones into tier 1 too. In int8 mode the pages are
-    quantized first and their scales copied alike (two launches more)."""
+    quantized first and their scales copied alike (two launches more).
+    ``index`` is :func:`prefill_index`'s, built once a prefill (by default
+    it is built here, on the host)."""
     B, S = k.shape[:2]
     npg = S // spec.page_size
     data = torch.stack([k, v], dim=2).reshape(
@@ -430,9 +444,7 @@ def prefill_write(pools, kv: PagedKV, spec: KVSpec, li: int,
         srcs = quantize(data)
     else:
         srcs = (data.to(pools[0].dtype),)
-    src = torch.arange(B * npg, dtype=_I32)
-    t2 = kv.t2_slot[:, :npg].reshape(-1)
-    t1 = kv.page_slot[:, :npg].reshape(-1)
+    src, t2, t1 = prefill_index(kv, npg) if index is None else index
     for (lo, up), x in zip(zip(pools[0::2], pools[1::2]), srcs):
         pg.page_copy(up[:, li], x, t2, src)
         pg.page_copy(lo[:, li], x, t1, src)
