@@ -11,11 +11,12 @@ after:
 1. build (ptxas's registers and spills of the flash and paged kernels;
    a spill in the tensor-core flash kernel at hd 64, 128 or 256 fails);
 2. the bound's timing probes; 3. the cache-scan kernel against
-   its plain version, every policy x prefetch;
+   its plain version, every policy x prefetch (each row evicts under
+   every pair);
 4. ``simulate`` on the §V worked example;
 5. ``simulate``'s stages on the full-size deployment (16 shards x 16,384
    lines, 2^22 requests), and the cache-scan kernel's masked mode against
-   its plain version on requests 98,304 to 131,071 of its rows, from the
+   its plain version on requests 98,304 to 114,687 of its rows, from the
    carry the kernel left after the first 98,304 (each row's cache fills
    and begins to evict in that window);
 6. the reuse-distance kernel against its plain version at small shapes,
@@ -30,7 +31,7 @@ after:
    the whole distance array;
 9. the sweep's megabatch at full width: 16 points, 8 cache signatures,
    one cache-scan launch of 128 rows, and the cache-scan kernel against
-   its plain version on those rows' first 2^15 steps;
+   its plain version on those rows' first 2^14 steps;
 10. serving at full width: mistral-nemo-12b in bf16 (weights from seed 0)
    at 20 of its 40 layers (the depth cut keeps the smoke inside its time
    limit), 8 requests x 3,072-token prompts, prefill and 257 greedy
@@ -68,7 +69,7 @@ after:
    ``engine="scan"`` on the card against the fused kernel.
 14. training (``repro_torch.launch.train.run_training``): (a) stablelm-3b
    at full width (bf16 weights, f32 AdamW moments and error feedback,
-   remat) for 12 steps of 2 x 4,096 tokens from the two-tier data-shard
+   remat) for 8 steps of 2 x 4,096 tokens from the two-tier data-shard
    cache: finite losses and grad norms, the median step time, tokens/s,
    model FLOP/s against the bf16 peak, peak memory, the card's busy share
    over one step (``torch.profiler``) and the cache's hits and misses;
@@ -112,6 +113,20 @@ after:
    median over steps and sequences (routing flips at near-ties move a
    few tokens' states a long way), a planted fault (top-1 routing) above
    them.
+20. training the other families (``run_training`` for mamba2-370m,
+   recurrentgemma-9b at 3 of 38 layers and mixtral-8x22b at 1 of 56;
+   ``make_train_step`` with stub frames or patch embeddings for
+   whisper-tiny and paligemma-3b): (a) each at full width for 4 steps:
+   finite losses and grad norms, no step skipped, every layer of every
+   first-moment leaf non-zero (so mamba2's gradients at its chunk of 256
+   are finite, fault (l) of the reference), the median step, positions
+   a second, model FLOP/s against the bf16 peak, peak memory beside its
+   reckoning, mixtral's auxiliary loss and dropped slots, and no hand
+   kernel launched (training runs the reference's training forms: the
+   plain blockwise attention, the chunked SSD scan and the associative
+   RG-LRU scan under autograd); (b) two f32 steps of each reduced
+   configuration on the card and on the CPU from one state, within
+   TRAIN_CPU_TOL (mixtral's routing compared between the devices).
 
 It prints:
 
@@ -186,16 +201,17 @@ PUBLISHED_LAM_EFF = 86.6  # §V worked example
 # each full-size row from the masked mode's carried state at request
 # WINDOW_START: every row's 16,384 lines fill (its 16,384th distinct page
 # arrives between requests 103,071 and 107,078) and evictions begin
-# inside the window. (A prefix of 2^17 requests from an empty cache held
-# the same events, but its plain per-step loop took 180-270 s.)
-WINDOW_START, WINDOW = 3 * 2**15, 2**15
+# inside the window, which ends at request 114,687. (A prefix of 2^17
+# requests from an empty cache held the same events, but its plain
+# per-step loop took 180-270 s; a window of 2^15 took 94-123 s.)
+WINDOW_START, WINDOW = 3 * 2**15, 2**14
 # Megabatch steps per row held against the plain version. Its rows fill
 # their 16,384 lines near step 105,000, so this prefix covers the fill
 # only; eviction under each policy and beta is held in phases 3 and 7,
 # and at full size under ws in phase 5. The plain version's per-step loop
-# takes about 1.5 ms a step on an H100 (PERF.md), and 2^17 steps here
-# would take a fifth of the smoke's time.
-MEGA_PREFIX = 2**15
+# takes about 2 ms a step on an H100 (PERF.md), and 2^17 steps here
+# would take a fifth of the smoke's time (2^15 took 69 s).
+MEGA_PREFIX = 2**14
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 # The serves' shape: 8 requests of 3,072-token prompts, 257 decode steps,
 # tier 1 at half the pages, promotion every 4 steps, at full width.
@@ -247,10 +263,10 @@ SSD_F32_TOL = 1e-4
 # within SSD_F32_TOL) carry the fine bar.
 SSD_HIDDEN_TOL = 0.2
 # Phase 14: training. (a) stablelm-3b at full width, 2 x 4,096 tokens (the
-# sequence of SHAPES["train_4k"]), 12 steps with the reference launcher's
-# hyperparameters; the step time is the median of steps 3-12.
-TRAIN = dict(arch="stablelm-3b", batch=2, seq=4096, steps=12, lr=3e-4)
-TRAIN_TIMED = slice(2, 12)
+# sequence of SHAPES["train_4k"]), 8 steps with the reference launcher's
+# hyperparameters; the step time is the median of steps 3-8.
+TRAIN = dict(arch="stablelm-3b", batch=2, seq=4096, steps=8, lr=3e-4)
+TRAIN_TIMED = slice(2, 8)
 # (b) three steps of reduced stablelm-3b in f32 on the card and on the CPU
 # from one state. The matmuls reduce in other orders on the two devices
 # (cuBLAS with TF32 off; the CPU's BLAS), which moves losses and grad
@@ -265,6 +281,30 @@ TRAIN_CPU_TOL = dict(rel=1e-5, lr_frac_per_step=0.1)
 # 5.8 GB snapshot): 5 steps uninterrupted; killed after step index 3 with
 # a tier-1 snapshot every 3 steps (one, at step 3); resumed to step 5.
 DRILL = dict(layers=2, steps=5, kill_at=3, tier1_every=3)
+# Phase 20: the other families train at their published widths, each for
+# TRAIN_FAMILY_STEPS steps (bf16 weights from seed 0, remat, the moments in
+# the configuration's dtype: f32, bf16 for mixtral), the step time the
+# median of steps 2-4. Depth and batch are cut only where one 80 GB card
+# forces it: recurrentgemma-9b at 3 of 38 layers (one R, R, local
+# attention repeat: 9.57 B parameters would take 153 GB of state) and 1 x
+# 4,096 tokens (the f32 logits over 256,000 tokens take 21 GB); mixtral at
+# 1 of 56 layers (2 reckon to 70 GB); paligemma-3b 1 x (256 patches +
+# 3,840 tokens). "reckoned" (``_train_reckoning``) is the state, 16 B a
+# parameter (bf16 parameters and gradients, two f32 moments, f32 error
+# feedback; 12 B with bf16 moments), plus the f32 logits, their exp and
+# their gradient (3 x 4 B a position and vocabulary entry) and the f32
+# unembedding with its gradient; activations under remat are not counted.
+TRAIN_FAMILIES = (
+    dict(arch="mamba2-370m", layers=0, batch=2, seq=4096),
+    dict(arch="recurrentgemma-9b", layers=3, batch=1, seq=4096),
+    dict(arch="mixtral-8x22b", layers=1, batch=2, seq=4096),
+    dict(arch="whisper-tiny", layers=0, batch=8, seq=448),
+    dict(arch="paligemma-3b", layers=0, batch=1, seq=4096),
+)
+TRAIN_FAMILY_STEPS = 4
+# (b) two f32 steps of each family's reduced configuration on the card and
+# on the CPU from one state, held to TRAIN_CPU_TOL.
+TRAIN_FAMILY_CPU = dict(batch=4, seq=64, steps=2, lr=1e-3)
 # Page copy's cold times (``cold_ms``): the median of COLD_REPS calls,
 # each after writing L2_FLUSH_BYTES (five times the H100's 50 MB L2).
 L2_FLUSH_BYTES = 256 * 2**20
@@ -720,7 +760,10 @@ def _rows(L: int, n_windows: int):
 
 
 def phase_kernel_vs_plain(rates: dict) -> None:
-    """Kernel vs plain version on the card, every policy x prefetch."""
+    """Kernel vs plain version on the card, every policy x prefetch, on 4
+    rows of 4,096 requests over 512 lines: each row fills its lines and
+    evicts under every pair (the Poisson/IRM row meets its 513th distinct
+    page at request 3,829, so shorter rows would not evict)."""
     from repro_torch.kernels import cache_scan as cs
     from repro_torch.storage.tiered_store import StoreConfig
     B, L, N, W = 4, 4096, 512, 8
@@ -739,6 +782,9 @@ def phase_kernel_vs_plain(rates: dict) -> None:
             p_ms, want = cuda_ms(lambda: cs.cache_scan_plain(
                 *args, n_windows=W))
             compare(out, want, f"policy={policy} prefetch={prefetch}")
+            if not (out["evictions"] > 0).all():
+                raise AssertionError(f"policy={policy} prefetch={prefetch}: "
+                                     "a row never evicts")
             b = cache_scan_bound(policy, out, rows[0], cfg, W, rates)
             check_over_bound(f"policy={policy} prefetch={prefetch}", k_ms,
                              b["bound_ms"])
@@ -2558,7 +2604,7 @@ def phase_chunked_replay(full_ctr, full_rep, full_rows, full: dict,
     ``donate=False`` baseline; (b) a stop at 2^21 requests, the checkpoint
     pickled and resumed, equal peak memory in both halves; (c) a
     two-tenant mix at full width against a one-shot ``tier1_counters``;
-    (d) the masked kernel against its plain version on 2^13 requests of
+    (d) the masked kernel against its plain version on 2^12 requests of
     the shard rows from the checkpoint's carry, pads mid-row and at the
     tails, in three plans; (e) ``engine="scan"`` on the card."""
     import pickle
@@ -2714,15 +2760,15 @@ def phase_chunked_replay(full_ctr, full_rep, full_rows, full: dict,
         f"tenants sum to the pool; {per}")
 
     # (d) the masked kernel against its plain version, from the
-    # checkpoint's carry (full caches), on 2^13 requests of the shard rows
+    # checkpoint's carry (full caches), on 2^12 requests of the shard rows
     # cut into three unequal chunks with pads planted.
-    P, W = 2**13, spec.n_windows
+    P, W = 2**12, spec.n_windows
     rng = np.random.default_rng(13)
     rows = full_rows[:, :P]
     B = rows.shape[0]
     writes_np = rng.random(rows.shape) < 0.3
     chunks = []
-    for lo, hi in ((0, 1900), (1900, 5600), (5600, P)):
+    for lo, hi in ((0, 950), (950, 2800), (2800, P)):
         # n real requests a row at random positions among the first
         # n + 5n/16 of n + 3n/8 (pads mid-row), then a padded tail.
         n = hi - lo
@@ -2902,7 +2948,7 @@ def _train_full(root: str, card: str, dev) -> None:
         f"AdamW moments and error feedback; remat), {T['steps']} steps of "
         f"{B} x {S} tokens from the data-shard cache, lr {T['lr']} "
         f"(warmup 20): run {wall:.1f} s (the first step {out['step_s'][0]:.2f} "
-        f"s); median step over steps 3-12 {1e3 * step_s:.1f} ms, "
+        f"s); median step over steps 3-{T['steps']} {1e3 * step_s:.1f} ms, "
         f"{tokens / step_s:,.0f} tokens/s [{card}]")
     log(f"[train, full width] model FLOPs a step: 6 N D = 6 x {n:,} x "
         f"{tokens:,} = {dense_flops:.4e}, attention 3 x 2 B H hd S^2 L = "
@@ -2949,50 +2995,111 @@ def _train_full(root: str, card: str, dev) -> None:
     del state, m, batch, prof
 
 
-def _train_card_vs_cpu(card: str, dev) -> None:
-    """Phase 14 (b): three f32 steps of reduced stablelm-3b on the card
-    and on the CPU from one state."""
+def _family_batch(cfg, B: int, S: int, rng, dev) -> dict:
+    """A batch of ``S`` positions a sequence from a numpy generator:
+    random tokens and labels, and the stub embeddings the family needs
+    (a VLM's patch embeddings among the ``S``, whisper's frames beside
+    them; ``N(0, 0.02^2)`` in the parameters' dtype), on ``dev``."""
+    s_txt = S - (cfg.vlm_prefix or 0)
+    b = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, s_txt)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    dt = getattr(torch, cfg.param_dtype)
+    for key, n, on in (("prefix_embeds", cfg.vlm_prefix, cfg.vlm_prefix),
+                       ("frames", cfg.enc_seq, cfg.enc_dec)):
+        if on:
+            b[key] = torch.from_numpy(rng.normal(size=(
+                B, n, cfg.d_model)).astype(np.float32) * 0.02).to(dt)
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+def _route_recorder(route, records: list):
+    """A stand-in for ``moe.route`` that records each call's router
+    probabilities and chosen experts (on the host) in ``records``."""
+
+    def recorded(x, w, cfg):
+        out = route(x, w, cfg)
+        records.append((out[0].detach().cpu(), out[2].cpu()))
+        return out
+    return recorded
+
+
+def _routing_margins(cpu_rec: list, gpu_rec: list, k: int) -> str:
+    """The two devices' routings: tokens whose top-``k`` experts differ,
+    and the smallest gap between the ``k``-th and the next probability
+    (the CPU's), over all tokens and over the flipped ones."""
+    flips, tokens, low, low_flip = 0, 0, float("inf"), float("inf")
+    for (p, e), (_, eg) in zip(cpu_rec, gpu_rec):
+        top = torch.sort(p, dim=-1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        diff = (e != eg).any(-1)
+        flips += int(diff.sum())
+        tokens += e.shape[0]
+        low = min(low, float(gap.min()))
+        if diff.any():
+            low_flip = min(low_flip, float(gap[diff].min()))
+    return (f"routing: {flips} of {tokens} (token, layer) choices differ "
+            f"between the devices; smallest top-{k} margin {low:.3e}"
+            + (f", {low_flip:.3e} at a flipped token" if flips else ""))
+
+
+def _train_card_vs_cpu(arch: str, C: dict, card: str, dev) -> None:
+    """``C["steps"]`` f32 steps of ``arch``'s reduced configuration on the
+    card and on the CPU from one state (phases 14 (b) and 20 (b))."""
     import dataclasses
     from repro_torch.configs.archs import get_config
+    from repro_torch.models import moe
     from repro_torch.models.params import init_params
     from repro_torch.training.compression import init_error_feedback
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     from repro_torch.training.train_step import (TrainHyper, TrainState,
                                                  make_train_step)
     from repro_torch.training.tree import leaves, tree_map
-    C, tol = TRAIN_CPU, TRAIN_CPU_TOL
-    cfg = dataclasses.replace(get_config(TRAIN["arch"]).reduced(),
+    tol = TRAIN_CPU_TOL
+    cfg = dataclasses.replace(get_config(arch).reduced(),
                               param_dtype="float32")
     params = init_params(cfg, 0, "cpu")
-    cpu = TrainState(params, adamw_init(params, "float32"),
+    cpu = TrainState(params, adamw_init(params, cfg.opt_state_dtype),
                      init_error_feedback(params))
     gpu = tree_map(lambda t: t.to(dev, copy=True), cpu)
     step = make_train_step(cfg, TrainHyper(adamw=AdamWConfig(
         lr=C["lr"], warmup_steps=0, decay_steps=100)))
     rng = np.random.default_rng(0)
     worst = dict(loss=0.0, grad_norm=0.0)
-    for _ in range(C["steps"]):
-        b = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (
-            C["batch"], C["seq"])).astype(np.int32)) for k in ("tokens",
-                                                               "labels")}
-        cpu, mc = step(cpu, b)
-        gpu, mg = step(gpu, {k: v.to(dev) for k, v in b.items()})
-        for k in worst:
-            a, g = float(mc[k]), float(mg[k])
-            worst[k] = max(worst[k], abs(g - a) / abs(a))
+    records = dict(cpu=[], gpu=[])
+    route0 = moe.route
+    try:
+        for _ in range(C["steps"]):
+            b = _family_batch(cfg, C["batch"], C["seq"], rng, "cpu")
+            moe.route = _route_recorder(route0, records["cpu"])
+            cpu, mc = step(cpu, b)
+            moe.route = _route_recorder(route0, records["gpu"])
+            gpu, mg = step(gpu, {k: v.to(dev) for k, v in b.items()})
+            for k in worst:
+                a, g = float(mc[k]), float(mg[k])
+                worst[k] = max(worst[k], abs(g - a) / abs(a))
+            if cfg.moe is not None:
+                a, g = float(mc["aux_loss"]), float(mg["aux_loss"])
+                worst["aux_loss"] = max(worst.get("aux_loss", 0.0),
+                                        abs(g - a) / abs(a))
+    finally:
+        moe.route = route0
     dp = max(float((g.cpu() - c).abs().max())
              for g, c in zip(leaves(gpu.params), leaves(cpu.params)))
     bound = tol["lr_frac_per_step"] * C["lr"] * C["steps"]
     equal_steps = int(gpu.opt.step) == int(cpu.opt.step) == C["steps"]
     ok = (max(worst.values()) <= tol["rel"] and dp <= bound and equal_steps)
+    routing = ("; " + _routing_margins(records["cpu"], records["gpu"],
+                                       cfg.moe.top_k)
+               if cfg.moe is not None else "")
     log(f"[train, card vs cpu] {cfg.name} f32, {C['steps']} steps of "
-        f"{C['batch']} x {C['seq']}, lr {C['lr']}, TF32 off: loss rel "
-        f"{worst['loss']:.2e}, grad norm rel {worst['grad_norm']:.2e} (bar "
-        f"{tol['rel']:.0e}); params max |diff| {dp:.3e} = "
-        f"{dp / C['lr']:.4f} lr (bar {bound / C['lr']:.2f} lr)")
+        f"{C['batch']} x {C['seq']}, lr {C['lr']}, TF32 off: "
+        + ", ".join(f"{k.replace('_', ' ')} rel {v:.2e}"
+                    for k, v in worst.items())
+        + f" (bar {tol['rel']:.0e}); params max |diff| {dp:.3e} = "
+        f"{dp / C['lr']:.4f} lr (bar {bound / C['lr']:.2f} lr){routing}")
     if not ok:
-        raise AssertionError("[train] card and CPU disagree beyond "
-                             "TRAIN_CPU_TOL")
+        raise AssertionError(f"[train] {cfg.name}: card and CPU disagree "
+                             "beyond TRAIN_CPU_TOL")
 
 
 def _train_drill(root: str, card: str, dev) -> None:
@@ -3060,12 +3167,212 @@ def phase_train(dev=torch.device("cuda")) -> None:
         _train_full(root, card, dev)
         gc.collect()
         torch.cuda.empty_cache()
-        _train_card_vs_cpu(card, dev)
+        _train_card_vs_cpu(TRAIN["arch"], TRAIN_CPU, card, dev)
         _train_drill(root, card, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[train] phase 14 took {time.perf_counter() - t_phase:.1f} s "
         f"[{card}]")
+
+
+def _train_reckoning(cfg, n: int, B: int, s_txt: int) -> dict:
+    """Phase 20's reckoned peak in GB: the state (bf16 parameters and
+    gradients, the moments in ``cfg.opt_state_dtype``, f32 error
+    feedback) and the f32 logits (the logits, their exp and their
+    gradient over ``B x s_txt`` positions; the f32 unembedding and its
+    gradient)."""
+    from repro_torch.models.params import pad_vocab
+    moment = 2 if cfg.opt_state_dtype == "bfloat16" else 4
+    V = pad_vocab(cfg.vocab)
+    state = n * (2 + 2 * moment + 4 + 2)
+    logits = 3 * B * s_txt * V * 4 + 2 * V * cfg.d_model * 4
+    return dict(state=state / 1e9, logits=logits / 1e9,
+                total=(state + logits) / 1e9)
+
+
+def _train_flops(cfg, params, B: int, S: int) -> float:
+    """Model FLOPs of one step: 6 N D, N the parameters a position passes
+    through (an MoE's expert banks at top_k / n_experts; whisper's encoder
+    over its frames), plus attention, 3 x 4 B H hd a visible (query, key)
+    pair and layer (QK^T and PV, forward and backward)."""
+    from repro_torch.training.tree import leaves
+    n_all = sum(t.numel() for t in leaves(params))
+    n_enc = sum(t.numel() for t in leaves(params.get("enc_blocks", [])))
+    n_exp = sum(blk[k].numel() for part in ("blocks", "tail")
+                for blk in params[part] for k in ("w_gate", "w_up", "w_down")
+                if cfg.moe is not None and k in blk)
+    active = n_all - n_enc - n_exp + (
+        n_exp * cfg.moe.top_k / cfg.moe.n_experts if cfg.moe else 0)
+    T = cfg.enc_seq if cfg.enc_dec else 0
+    flops = 6 * active * B * S + 6 * n_enc * B * T
+    pair = 3 * 4 * B * cfg.n_heads * cfg.head_dim
+    for kind in cfg.layer_kinds():
+        if kind.startswith("attn"):
+            window = cfg.window if kind in ("attn_swa", "attn_local") else None
+            flops += pair * _visible_pairs(S, S, window=window,
+                                           prefix_len=cfg.vlm_prefix or 0)
+            if cfg.enc_dec:
+                flops += pair * _visible_pairs(S, T, causal=False)
+    flops += pair * cfg.n_enc_layers * _visible_pairs(T, T, causal=False)
+    return flops
+
+
+def _train_with_extras(cfg, F: dict, dev) -> dict:
+    """Phase 20 (a) for whisper-tiny and paligemma-3b, whose batches carry
+    stub embeddings that the data-shard cache does not hold: ``run_training``
+    refuses them, so the steps go through ``make_train_step`` with
+    ``run_training``'s state and hyperparameters, each step's batch drawn
+    from a numpy seed. Returns ``run_training``'s keys."""
+    from repro_torch.models.params import init_params
+    from repro_torch.training.compression import init_error_feedback
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import (TrainHyper, TrainState,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves
+    params = init_params(cfg, 0, dev)
+    state = TrainState(params, adamw_init(params, cfg.opt_state_dtype),
+                       init_error_feedback(params))
+    step_fn = make_train_step(cfg, TrainHyper(adamw=AdamWConfig(
+        lr=TRAIN["lr"], warmup_steps=20, decay_steps=100)))
+    out = dict(losses=[], grad_norms=[], aux_losses=[], dropped=[],
+               step_s=[], n_params=sum(p.numel() for p in leaves(params)))
+    for i in range(TRAIN_FAMILY_STEPS):
+        t0 = time.perf_counter()
+        b = _family_batch(cfg, F["batch"], F["seq"],
+                          np.random.default_rng(i), dev)
+        state, m = step_fn(state, b)
+        for key, metric in (("losses", "loss"), ("grad_norms", "grad_norm"),
+                            ("aux_losses", "aux_loss"),
+                            ("dropped", "dropped")):
+            out[key].append(float(m[metric]))
+        out["step_s"].append(time.perf_counter() - t0)
+    out["state"] = state
+    return out
+
+
+def _untrained_leaves(mu) -> list:
+    """The first-moment leaves (each layer of a stacked leaf on its own)
+    that are all zero: no step's gradient reached them."""
+    dead = []
+    for name in sorted(mu):
+        tree = mu[name]
+        if isinstance(tree, torch.Tensor):
+            tree = [{"": tree}]
+        for i, blk in enumerate(tree):
+            for k, m in blk.items():
+                rows = m.reshape(m.shape[0], -1) if (
+                    name in ("blocks", "enc_blocks") and m.dim() > 1) else (
+                    m.reshape(1, -1))
+                for r in torch.nonzero(~rows.ne(0).any(1)).flatten().tolist():
+                    dead.append(f"{name}[{i}].{k}[{r}]")
+    return dead
+
+
+def _train_family(F: dict, root: str, card: str, dev) -> None:
+    """Phase 20 (a): one family at full width for TRAIN_FAMILY_STEPS steps."""
+    import dataclasses
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch.train import run_training
+    from repro_torch.training.checkpoint import CheckpointConfig
+    cfg = get_config(F["arch"])
+    if F["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=F["layers"])
+    B, S, steps = F["batch"], F["seq"], TRAIN_FAMILY_STEPS
+    never = 10 ** 9
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_train_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    if cfg.enc_dec or cfg.vlm_prefix:
+        out = _train_with_extras(cfg, F, dev)
+    else:
+        out = run_training(
+            arch=F["arch"], reduced=False, layers=F["layers"], steps=steps,
+            batch=B, seq=S, lr=TRAIN["lr"], resume=False,
+            data_dir=os.path.join(root, "data_" + F["arch"]),
+            ckpt=CheckpointConfig(dir_tier1=os.path.join(root, "fam_fast"),
+                                  dir_tier2=os.path.join(root, "fam_durable"),
+                                  tier1_every=never, tier2_every=never),
+            log_every=never, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = _train_launches()
+    state = out.pop("state")
+    losses, gnorms = out["losses"], out["grad_norms"]
+    dead = _untrained_leaves(state.opt.mu)
+    finite = (len(losses) == steps and np.all(np.isfinite(losses))
+              and np.all(np.isfinite(gnorms)))
+    s_txt = S - (cfg.vlm_prefix or 0)
+    reck = _train_reckoning(cfg, out["n_params"], B, s_txt)
+    step_s = float(np.median(out["step_s"][1:]))
+    flops = _train_flops(cfg, state.params, B, S)
+    depth = (f"{cfg.n_layers} of {get_config(F['arch']).n_layers} layers"
+             if F["layers"] else f"all {cfg.n_layers} layers")
+    extras = (f" + {cfg.enc_seq} stub frames" if cfg.enc_dec else
+              f" ({cfg.vlm_prefix} stub patches + {s_txt} tokens)"
+              if cfg.vlm_prefix else "")
+    log(f"[train families] {cfg.name} at full width, {depth}, "
+        f"{out['n_params']:,} parameters (bf16; {cfg.opt_state_dtype} "
+        f"moments; remat), {steps} steps of {B} x {S}{extras}: run "
+        f"{wall:.1f} s (the first step {out['step_s'][0]:.2f} s); median "
+        f"step over steps 2-{steps} {1e3 * step_s:.1f} ms, "
+        f"{B * S / step_s:,.0f} positions/s; model FLOPs {flops:.4e} a step "
+        f"(6 N D + attention): {flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{100 * flops / step_s / BF16_FLOPS_PER_S:.1f}% of the bf16 dense "
+        f"peak; peak memory {peak:.2f} GB (reckoned {reck['total']:.1f} GB: "
+        f"state {reck['state']:.1f}, f32 logits and unembedding "
+        f"{reck['logits']:.1f}) [{card}]")
+    log(f"[train families] {cfg.name}: losses {[round(x, 4) for x in losses]};"
+        f" grad norms {[round(x, 4) for x in gnorms]}; optimizer steps "
+        f"{int(state.opt.step)}; first-moment leaves never reached "
+        f"{dead or 'none'}; hand-kernel launches {launches}")
+    if cfg.moe is not None:
+        log(f"[train families] {cfg.name}: aux_loss "
+            f"{[round(x, 5) for x in out['aux_losses']]}, dropped slot "
+            f"fraction {[round(x, 5) for x in out['dropped']]}")
+    if cfg.ssm is not None:
+        mu = state.opt.mu["blocks"][0]
+        log(f"[train families] {cfg.name} at its chunk of {cfg.ssm.chunk} "
+            f"(fault (l)): first moments' largest magnitude "
+            + ", ".join(f"{k} {float(mu[k].float().abs().max()):.3e}"
+                        for k in ("A_log", "dt_bias", "w_dt"))
+            + ", every layer's non-zero and finite")
+    if peak > 72:
+        log(f"[train families] {cfg.name}: peak memory {peak:.2f} GB is over "
+            "72 GB")
+    if not finite or dead or int(state.opt.step) != steps or any(
+            launches.values()):
+        raise AssertionError(f"[train families] {cfg.name}: non-finite "
+                             f"losses or grad norms, a skipped step, a "
+                             f"leaf never trained or a hand kernel launched")
+    del state, out
+
+
+def phase_train_families(dev=torch.device("cuda")) -> None:
+    """Phase 20: training the other families (mamba2-370m,
+    recurrentgemma-9b, mixtral-8x22b, whisper-tiny, paligemma-3b)."""
+    import shutil
+    import tempfile
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_families_", dir=build)
+    try:
+        for F in TRAIN_FAMILIES:
+            _train_family(F, root, card, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for F in TRAIN_FAMILIES:
+        _train_card_vs_cpu(F["arch"], TRAIN_FAMILY_CPU, card, dev)
+    log(f"[train families] phase 20 took {time.perf_counter() - t_phase:.1f}"
+        f" s [{card}]")
 
 
 def _same_value(a, b) -> bool:
@@ -3748,6 +4055,7 @@ def main() -> int:
     int8 = phase_int8_serve(bf16_run)
     breadth = [phase_family_serve(S) for S in (WHISPER_SERVE, VLM_SERVE,
                                                MOE_SERVE)]
+    phase_train_families()
     for entry in serving:
         entry.update(at_rg[entry["name"]])
         entry.update(int8[entry["name"]])

@@ -7,12 +7,20 @@ tensors. Inside :func:`plain_versions`, the serving path's wrappers
 run their plain versions on CUDA tensors too: the explicit switch with
 which a run on the card is held against the plain path. Nothing falls
 back from one to the other.
+
+No kernel has a backward, and a wrapper returns tensors with no
+``grad_fn``: under autograd every dispatcher refuses inputs that require
+grad (:func:`refuse_autograd`), on every device, rather than cut the graph
+and let the inputs' gradients read as zeros. Training runs the
+reference's training forms instead (``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 
 import contextlib
 
-__all__ = ["plain_versions", "plain_selected"]
+import torch
+
+__all__ = ["plain_versions", "plain_selected", "refuse_autograd"]
 
 _PLAIN = [False]
 
@@ -30,3 +38,15 @@ def plain_versions():
 
 def plain_selected() -> bool:
     return _PLAIN[0]
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise if grad mode is on and any of ``tensors`` requires grad: the
+    ``name`` kernel has no backward (ROADMAP.md §2 item 8)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the hand kernel has no backward (ROADMAP.md §2 item 8); "
+            "its inputs require grad, and its output would cut the graph. "
+            "Train through the model's training forms, or call it under "
+            "torch.no_grad()")

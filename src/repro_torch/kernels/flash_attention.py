@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import plain_selected
+from repro_torch.kernels import plain_selected, refuse_autograd
 from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 from repro_torch.kernels.ref import attention_ref
@@ -127,6 +127,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     to query ``i`` if ``j <= i`` (and ``j > i - window``) or ``j <
     prefix_len``."""
     _check(q, k, v, window, prefix_len)
+    refuse_autograd("flash_attention", q, k, v)
     kw = dict(causal=causal, window=window, prefix_len=prefix_len)
     if q.device.type == "cpu" or (q.device.type == "cuda"
                                    and plain_selected()):

@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import plain_selected
+from repro_torch.kernels import plain_selected, refuse_autograd
 from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 from repro_torch.kernels.ref import page_copy_ref
@@ -202,6 +202,7 @@ def page_copy(dst: torch.Tensor, src: torch.Tensor, dst_idx: torch.Tensor,
     """``dst[dst_idx[i]] = src[src_idx[i]]`` in place for the live pairs:
     the plain version for CPU tensors, the kernel for CUDA tensors."""
     _check(dst, src, dst_idx, src_idx)
+    refuse_autograd("page_copy", dst, src)
     dev = dst.device
     if dev.type == "cpu" or (dev.type == "cuda" and plain_selected()):
         return page_copy_ref(dst, src, dst_idx, src_idx)

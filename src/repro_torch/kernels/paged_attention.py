@@ -39,7 +39,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import plain_selected
+from repro_torch.kernels import plain_selected, refuse_autograd
 from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 from repro_torch.kernels.ref import paged_attention_ref
@@ -194,6 +194,7 @@ def paged_attention(q: torch.Tensor, pool: torch.Tensor,
     int8 pool with its ``scale``): the plain version for a CPU pool, the
     kernel for a CUDA pool."""
     _check(q, pool, page_slot, lengths, scale)
+    refuse_autograd("paged_attention", q, pool, scale)
     dev = pool.device
     if dev.type == "cpu" or (dev.type == "cuda" and plain_selected()):
         return paged_attention_ref(q.to(dev), pool, page_slot, lengths,

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import plain_selected
+from repro_torch.kernels import plain_selected, refuse_autograd
 from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 from repro_torch.kernels.ref import softplus
@@ -131,6 +131,7 @@ def rglru_scan(u, w_a, b_a, w_x, b_x, lam) -> torch.Tensor:
     """RG-LRU ``h [B, S, W]`` in u's dtype: the plain version for CPU
     tensors, the kernel for CUDA tensors."""
     _check(u, (w_a, b_a, w_x, b_x, lam))
+    refuse_autograd("rglru_scan", u, w_a, b_a, w_x, b_x, lam)
     dev = u.device
     if dev.type == "cpu" or (dev.type == "cuda" and plain_selected()):
         return rglru_scan_plain(u, w_a, b_a, w_x, b_x, lam)

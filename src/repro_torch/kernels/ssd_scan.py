@@ -40,7 +40,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import plain_selected
+from repro_torch.kernels import plain_selected, refuse_autograd
 from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 
@@ -168,6 +168,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
     P])`` with chunks of ``min(chunk, S)``: the plain version for CPU
     tensors, the kernel for CUDA tensors."""
     _check(x, dt, A, Bm, Cm)
+    refuse_autograd("ssd_scan", x, dt, A, Bm, Cm)
     S0 = x.shape[1]
     Q = min(chunk, S0)
     pad = (-S0) % Q

@@ -11,7 +11,12 @@ weights are random, drawn from a seed (no download); the token shards are
 generated from a seed into ``data/shards``. Without ``--full`` the
 architecture's reduced variant trains; ``--full`` trains it at its
 published width (stablelm-3b: 2.8 B parameters, bf16, f32 AdamW moments
-and error feedback, remat), and ``--layers`` cuts its depth.
+and error feedback, remat), and ``--layers`` cuts its depth. The token
+families train here (dense, MoE, mamba2, recurrentgemma); the data cache
+yields tokens and labels only, as the reference's does, so whisper-tiny
+(stub ``frames``) and paligemma-3b (``prefix_embeds``) are refused: they
+train through :func:`repro_torch.training.train_step.make_train_step`
+with a batch that carries them.
 
 Fault tolerance, as the reference's (``repro.launch.train``):
 
@@ -69,12 +74,21 @@ def run_training(
     Returns the reference's dict: ``losses``, ``final_loss``,
     ``steps_per_s``, ``n_params``, ``cache_hits``, ``cache_misses``, or
     ``killed_at``, ``losses`` and ``n_params`` on a kill; and besides,
-    ``grad_norms`` and ``step_s`` (each step's wall time, the batch's
+    ``grad_norms``, the MoE's ``aux_losses`` and ``dropped`` (zeros for
+    the other models), and ``step_s`` (each step's wall time, the batch's
     assembly and copy included, the checkpoints not), ``save_s`` and
     ``restore_s`` (the checkpoints' wall time), and the final ``state``.
     """
-    dev = resolve_device(device)
     cfg = get_config(arch)
+    extras = [k for k, needed in (("frames", cfg.enc_dec),
+                                  ("prefix_embeds", bool(cfg.vlm_prefix)))
+              if needed]
+    if extras:
+        raise ValueError(
+            f"{arch} trains on a batch with {' and '.join(extras)} besides "
+            "tokens and labels, which the data-shard cache does not hold: "
+            "train it through make_train_step with stub embeddings")
+    dev = resolve_device(device)
     if reduced:
         cfg = cfg.reduced()
     if d_model_override:
@@ -113,7 +127,7 @@ def run_training(
                               vocab=cfg.vocab)
     cache = DataCache(store, DataCacheConfig(cache_shards=4))
 
-    losses, gnorms, step_s = [], [], []
+    losses, gnorms, aux, dropped, step_s = [], [], [], [], []
     save_s = 0.0
     t_run = time.perf_counter()
     for step in range(start, steps):
@@ -123,6 +137,8 @@ def run_training(
         state, metrics = step_fn(state, b)
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
+        aux.append(float(metrics["aux_loss"]))
+        dropped.append(float(metrics["dropped"]))
         step_s.append(time.perf_counter() - t0)
         if step % log_every == 0 or step == steps - 1:
             print(f"step {step:5d} loss {losses[-1]:.4f} "
@@ -135,7 +151,7 @@ def run_training(
             print(f"[fault-injection] simulated failure at step {step}")
             return {"killed_at": step, "losses": losses,
                     "n_params": n_params, "grad_norms": gnorms,
-                    "step_s": step_s, "save_s": save_s,
+                    "aux_losses": aux, "dropped": dropped, "step_s": step_s, "save_s": save_s,
                     "restore_s": restore_s, "state": state}
     return {
         "losses": losses,
@@ -146,6 +162,8 @@ def run_training(
         "cache_hits": cache.hits,
         "cache_misses": cache.misses,
         "grad_norms": gnorms,
+        "aux_losses": aux,
+        "dropped": dropped,
         "step_s": step_s,
         "save_s": save_s,
         "restore_s": restore_s,
@@ -175,7 +193,8 @@ def main(argv=None) -> None:
                        d_model_override=args.d_model, layers=args.layers,
                        device=args.device)
     print({k: v for k, v in out.items()
-           if k not in ("losses", "grad_norms", "step_s", "state")})
+           if k not in ("losses", "grad_norms", "aux_losses", "dropped",
+                        "step_s", "state")})
 
 
 if __name__ == "__main__":

@@ -124,15 +124,40 @@ def mlp_swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     return torch.matmul(h, w_down)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """cuBLAS's f32 sums of bf16 products, which have no derivative in
+    PyTorch, with the gradients of a product in the operands' dtype (as
+    autograd takes them through :func:`dense`): the output's gradient
+    rounded to that dtype, then multiplied by each operand."""
+
+    @staticmethod
+    def forward(a, b):
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=_F32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (g @ b.transpose(-1, -2) if ctx.needs_input_grad[0] else None,
+                a.transpose(-1, -2) @ g if ctx.needs_input_grad[1] else None)
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (2-D or batched 3-D) summed and returned in f32, as the
     reference's ``preferred_element_type=f32`` products that are used
     before any cast. On the card cuBLAS writes the f32 sums of bf16
-    products directly; on the CPU the operands are widened first (a
-    product of two bf16 values is exact in f32)."""
+    products directly (under autograd through :class:`_MatmulF32`); on the
+    CPU the operands are widened first (a product of two bf16 values is
+    exact in f32)."""
     if a.is_cuda and a.dtype != _F32:
-        mm = torch.mm if a.dim() == 2 else torch.bmm
-        return mm(a, b, out_dtype=_F32)
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MatmulF32.apply(a, b)
+        return _MatmulF32.forward(a, b)
     return torch.matmul(a.to(_F32), b.to(_F32))
 
 

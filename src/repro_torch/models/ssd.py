@@ -3,11 +3,14 @@
 The prefill form runs the chunked SSD scan through
 :func:`repro_torch.kernels.ssd_scan.ssd_scan` (the hand kernel on the card,
 its plain version on the CPU), which also returns the state after the
-last step; the decode form is the O(1) state update in plain PyTorch, as
-the reference computes it outside any Pallas kernel. Numerics as the
-reference's ``repro/models/ssd.py``: projections in the model's dtype with
-f32 accumulation, the scan and the gating in f32, the prefill's causal
-convolution rounded to the model's dtype, the decode step's kept in f32.
+last step; the training form runs :func:`ssd_chunked`, the reference's
+``ssd_chunked`` in PyTorch under autograd (the reference trains through
+it, not through its Pallas kernel); the decode form is the O(1) state
+update in plain PyTorch, as the reference computes it outside any Pallas
+kernel. Numerics as the reference's ``repro/models/ssd.py``: projections
+in the model's dtype with f32 accumulation, the scan and the gating in
+f32, the prefill's causal convolution rounded to the model's dtype, the
+decode step's kept in f32.
 """
 from __future__ import annotations
 
@@ -19,9 +22,72 @@ from repro_torch.kernels import ssd_scan as ks
 from repro_torch.kernels.ref import softplus
 from repro_torch.models.layers import causal_conv1d, dense, rms_norm
 
-__all__ = ["ssd_block", "ssd_block_step"]
+__all__ = ["ssd_chunked", "ssd_block", "ssd_block_step"]
 
 _F32 = torch.float32
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int):
+    """The chunked SSD scan under autograd, as the reference's
+    ``ssd_chunked``: ``(y [B, S, H, P] in x's dtype, final state f32 [B, H,
+    N, P])`` for x ``[B, S, H, P]``, dt ``[B, S, H]`` (softplus'ed), A
+    ``[H]`` (negative), Bm/Cm ``[B, S, N]``, in chunks of ``min(chunk,
+    S)`` (S zero-padded to a multiple: dt = 0 leaves the state unchanged).
+
+    The same f32 terms: within each chunk ``(C . B^T * decay) . (dt x)``,
+    each chunk's state increment ``B^T . (exp(cum_end - cum) dt x)``, the
+    states carried across chunks, and ``exp(cum) C . h`` from the state
+    entering the chunk. Two differences: the first leaves the forward's
+    value as it was, the second only the order of its f32 sums:
+
+    - the decay ``exp(cum_t - cum_s)`` is taken of the exponent selected
+      to 0 above the diagonal, where the reference takes it of the whole
+      chunk and selects after. Above the diagonal the exponent is a sum of
+      ``|dt A|``, which at mamba2's chunk of 256 passes f32's ``exp``
+      limit, and the reference's selection then back-propagates ``0 *
+      inf = NaN`` (fault (l));
+    - the reference's four-operand contraction is taken in pairs, so no
+      ``[B, nc, Q, Q, H, P]`` product is formed (17 GB at mamba2's width
+      and 2 x 4,096 tokens), and the carry over the ``nc`` chunk states is
+      a loop, not an associative scan (it sums in another order).
+    """
+    f = torch.float32
+    Bsz, S0, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S0)
+    pad = (-S0) % Q
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    nc = x.shape[1] // Q
+    # Heads before steps: [B, nc, H, Q, ...].
+    xf = x.to(f).reshape(Bsz, nc, Q, H, P).transpose(2, 3)
+    dtf = dt.to(f).reshape(Bsz, nc, Q, H).transpose(2, 3)
+    Bf = Bm.to(f).reshape(Bsz, nc, Q, N)
+    Cf = Cm.to(f).reshape(Bsz, nc, Q, N)
+    cum = torch.cumsum(dtf * A.to(f)[:, None], dim=-1)          # [B,nc,H,Q]
+    dx = dtf[..., None] * xf                                     # [B,nc,H,Q,P]
+
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    diff = cum[..., :, None] - cum[..., None, :]                 # [B,nc,H,Q,Q]
+    decay = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+    cb = Cf @ Bf.transpose(-1, -2)                               # [B,nc,Q,Q]
+    y_diag = (cb[:, :, None] * decay) @ dx                       # [B,nc,H,Q,P]
+
+    edge = torch.exp(cum[..., -1:] - cum)                        # [B,nc,H,Q]
+    states = Bf[:, :, None].transpose(-1, -2) @ (edge[..., None] * dx)
+    chunk_decay = torch.exp(cum[..., -1])                        # [B,nc,H]
+    h = torch.zeros((Bsz, H, N, P), dtype=f, device=x.device)
+    h_prev = []                                                  # entering
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                          # [B,nc,H,N,P]
+    y_off = torch.exp(cum)[..., None] * (Cf[:, :, None] @ h_prev)
+    y = (y_diag + y_off).transpose(2, 3).reshape(Bsz, nc * Q, H, P)
+    return y[:, :S0].to(x.dtype), h
 
 
 def _gate_out(y, xh, z, p, x_dtype):
@@ -35,10 +101,13 @@ def _gate_out(y, xh, z, p, x_dtype):
 
 
 def ssd_block(x: torch.Tensor, p: dict, cfg: SSMConfig, *,
-              capture: bool = False):
+              capture: bool = False, scan=None):
     """The Mamba-2 block over a sequence, x ``[B, S, d]``: ``(out,
     state)``; with ``capture``, ``state`` is the decode continuation
-    ``{"h": [B, H, N, P] f32, "conv": [B, K-1, di + 2N]}``, else None."""
+    ``{"h": [B, H, N, P] f32, "conv": [B, K-1, di + 2N]}``, else None.
+    ``scan`` is the chunked scan: :func:`ssd_chunked` for training, or by
+    default the kernel's dispatcher (the prefill's), looked up at the call
+    (so that a caller may replace it on its module)."""
     Bsz, S, _ = x.shape
     z = dense(x, p["w_z"])
     xin_pre = dense(x, p["w_x"])
@@ -52,7 +121,7 @@ def ssd_block(x: torch.Tensor, p: dict, cfg: SSMConfig, *,
     xh = xin.reshape(Bsz, S, H, P)
     dt = softplus(dt_raw.to(_F32) + p["dt_bias"].to(_F32))
     A = -torch.exp(p["A_log"].to(_F32))
-    y, h_last = ks.ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.chunk)
+    y, h_last = (scan or ks.ssd_scan)(xh, dt, A, Bm, Cm, chunk=cfg.chunk)
     out = _gate_out(y.to(_F32), xh.to(_F32), z, p, x.dtype)
     if not capture:
         return out, None

@@ -15,15 +15,19 @@ pre-norm Griffin recurrent block and an FFN; an SSD block is the pre-norm
 Mamba-2 block alone. The prefill runs its attention through the flash kernel
 (:mod:`repro_torch.kernels.flash_attention`) and its scans through the
 SSD and RG-LRU kernels (the kernels on the card, their plain versions on
-the CPU); :func:`fwd_hidden`, the independent full forward that decode is
-checked against, runs the plain
-:func:`~repro_torch.models.attention.blockwise_attention`, as the
-reference's does. :func:`fwd_train` is the training loss on
-:func:`fwd_hidden`, each block under ``torch.utils.checkpoint`` when the
-configuration asks for remat (the reference's ``jax.checkpoint`` of each
-superblock); the reference's training forward reaches no Pallas kernel,
-and neither does the port's. Training refuses what it does not train
-yet: recurrent blocks, MoE, the encoder-decoder and the VLM prefix.
+the CPU); :func:`fwd_hidden`, the training forward and the independent
+full forward that decode is checked against, runs the reference's own
+training forms under autograd: the plain
+:func:`~repro_torch.models.attention.blockwise_attention`, the chunked SSD
+scan :func:`~repro_torch.models.ssd.ssd_chunked` and the associative
+RG-LRU scan :func:`~repro_torch.models.rglru.rglru_scan`. So training
+reaches no hand kernel, as the reference's reaches no Pallas kernel (the
+kernels have no backward; their dispatchers refuse autograd).
+:func:`fwd_train` is the training loss on :func:`fwd_hidden`, each block
+under ``torch.utils.checkpoint`` when the configuration asks for remat
+(the reference's ``jax.checkpoint`` of each superblock), with the MoE's
+auxiliary loss, whisper's stub frames and a VLM's patch embeddings from
+the batch.
 """
 from __future__ import annotations
 
@@ -40,8 +44,8 @@ from repro_torch.models.attention import blockwise_attention
 from repro_torch.models.layers import (apply_rope, dense, embed, mlp_gelu,
                                        mlp_swiglu, rms_norm, rope_tables,
                                        sinusoidal_positions, unembed_loss)
-from repro_torch.models.rglru import recurrent_block
-from repro_torch.models.ssd import ssd_block
+from repro_torch.models.rglru import recurrent_block, rglru_scan
+from repro_torch.models.ssd import ssd_block, ssd_chunked
 
 __all__ = ["Layer", "layers", "ffn", "cross_kv", "apply_block",
            "encode_frames", "positions_in", "fwd_hidden", "fwd_train",
@@ -136,53 +140,79 @@ def _cross_attention(x, enc_out, p, cfg: ModelConfig, attend: Callable):
     return dense(o.reshape(B, S, -1), p["xwo"])
 
 
-def ffn(x, p, cfg: ModelConfig):
+def _ffn(x, p, cfg: ModelConfig):
     """The pre-norm FFN of an attention or RG-LRU block over ``x [..., d]``:
-    the MoE, whisper's gelu MLP, or SwiGLU."""
+    the MoE, whisper's gelu MLP, or SwiGLU. Returns ``(delta, aux_loss,
+    dropped)``, the last two f32 scalars for the MoE and None otherwise
+    (the reference's zeros)."""
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if cfg.moe is not None:
         out = moe.moe_swiglu(h.reshape(-1, h.shape[-1]), p["w_router"],
                              p["w_gate"], p["w_up"], p["w_down"], cfg.moe)
-        return out.y.reshape(h.shape)
+        return out.y.reshape(h.shape), out.aux_loss, out.dropped
     if cfg.family == "audio":
-        return mlp_gelu(h, p["w1"], p["b1"], p["w2"], p["b2"])
-    return mlp_swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+        return mlp_gelu(h, p["w1"], p["b1"], p["w2"], p["b2"]), None, None
+    return mlp_swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None, None
 
 
-def apply_block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
-                attend: Callable = _flash, capture: bool = False,
-                prefix_len: int = 0, enc_out=None):
-    """One block over a sequence (``rope``: the positions' :func:`~
-    repro_torch.models.layers.rope_tables`, unused for whisper;
-    ``prefix_len``: the bidirectional prefix of a VLM; ``enc_out``: the
-    encoder's output, attended to by a decoder layer's cross-attention).
-    Returns ``(x, extras)``: the new residual stream, and for an attention
-    block its RoPE'd keys and values ``[B, S, KV, hd]`` (the paged pools'
-    layout), for a recurrent block its decode state with ``capture`` (else
-    None)."""
+def ffn(x, p, cfg: ModelConfig):
+    """The FFN's ``delta`` alone (the decode step's)."""
+    return _ffn(x, p, cfg)[0]
+
+
+def _block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
+           attend: Callable = _flash, ssd_scan: Optional[Callable] = None,
+           rglru_scan: Optional[Callable] = None, capture: bool = False,
+           prefix_len: int = 0, enc_out=None):
+    """One block over a sequence, as the reference's ``apply_block``
+    (``rope``: the positions' :func:`~repro_torch.models.layers.
+    rope_tables`, unused for whisper; ``prefix_len``: the bidirectional
+    prefix of a VLM; ``enc_out``: the encoder's output, attended to by a
+    decoder layer's cross-attention; ``attend``, ``ssd_scan`` and
+    ``rglru_scan``: the attention and the scans, by default the kernels'
+    dispatchers, looked up at the call). Returns ``(x, aux_loss, dropped, extras)``: the new
+    residual stream, the MoE's auxiliary loss and dropped fraction (None
+    without MoE), and for an attention block its RoPE'd keys and values
+    ``[B, S, KV, hd]`` (the paged pools' layout), for a recurrent block
+    its decode state with ``capture`` (else None)."""
     if kind.startswith("attn"):
         delta, kv = _self_attention(x, p, cfg, rope, kind=kind,
                                     attend=attend, prefix_len=prefix_len)
         x = x + delta
         if enc_out is not None and "xwq" in p:
             x = x + _cross_attention(x, enc_out, p, cfg, attend)
-        return x + ffn(x, p, cfg), kv
+        delta, aux, dropped = _ffn(x, p, cfg)
+        return x + delta, aux, dropped, kv
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     if kind == "rglru":
-        delta, state = recurrent_block(h, p, capture=capture)
+        delta, state = recurrent_block(h, p, capture=capture,
+                                       scan=rglru_scan)
         x = x + delta
-        return x + ffn(x, p, cfg), state
+        delta, aux, dropped = _ffn(x, p, cfg)
+        return x + delta, aux, dropped, state
     if kind == "ssd":
         delta, state = ssd_block(h, p, cfg.ssm or SSMConfig(),
-                                 capture=capture)
-        return x + delta, state
+                                 capture=capture, scan=ssd_scan)
+        return x + delta, None, None, state
     raise ValueError(kind)
+
+
+def apply_block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
+                capture: bool = False, prefix_len: int = 0, enc_out=None):
+    """The prefill's block, through the kernels: ``(x, extras)`` of
+    :func:`_block`."""
+    x, _, _, extras = _block(kind, x, p, cfg, rope, capture=capture,
+                             prefix_len=prefix_len, enc_out=enc_out)
+    return x, extras
 
 
 def _remat_block(kind: str, x, p: dict, cfg: ModelConfig, rope,
                  prefix_len: int = 0, enc_out=None):
-    return apply_block(kind, x, p, cfg, rope, attend=blockwise_attention,
-                       prefix_len=prefix_len, enc_out=enc_out)[0]
+    """A block of :func:`fwd_hidden`, through the training forms: ``(x,
+    aux_loss, dropped)`` of :func:`_block`."""
+    return _block(kind, x, p, cfg, rope, attend=blockwise_attention,
+                  ssd_scan=ssd_chunked, rglru_scan=rglru_scan,
+                  prefix_len=prefix_len, enc_out=enc_out)[:3]
 
 
 def encode_frames(frames, params: dict, cfg: ModelConfig, *,
@@ -223,12 +253,15 @@ def positions_in(x, cfg: ModelConfig, *, prefix_embeds=None):
 
 
 def fwd_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-               prefix_embeds=None, frames=None) -> torch.Tensor:
+               prefix_embeds=None, frames=None
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Token ids ``[B, S]`` (after ``prefix_embeds [B, P, d]`` for a VLM;
     attending to the encoded ``frames [B, T_enc, d]`` for whisper) ->
-    final (normed) hidden states ``[B, P + S, d]``, with blockwise
-    attention. Under autograd with ``cfg.remat``, each block keeps only its
-    input and recomputes the rest in the backward pass."""
+    ``(x, aux_loss, dropped)``: the final (normed) hidden states ``[B, P +
+    S, d]``, and the MoE's auxiliary loss and dropped-slot fraction summed
+    over the layers (f32 zeros without MoE), with the training forms of
+    attention and the scans. Under autograd with ``cfg.remat``, each block
+    keeps only its input and recomputes the rest in the backward pass."""
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens).to(dev)
     x, prefix_len, rope = positions_in(embed(tokens, params["embed"]), cfg,
@@ -239,42 +272,34 @@ def fwd_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             raise ValueError("whisper needs stub frame embeddings (frames)")
         enc_out = encode_frames(torch.as_tensor(frames).to(dev), params, cfg,
                                 attend=blockwise_attention)
+    aux = torch.zeros((), dtype=_F32, device=dev)
+    dropped = torch.zeros((), dtype=_F32, device=dev)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in layers(params, cfg):
-        if remat:
-            x = checkpoint(_remat_block, layer.kind, x, layer.p, cfg, rope,
-                           prefix_len, enc_out, use_reentrant=False)
-        else:
-            x = _remat_block(layer.kind, x, layer.p, cfg, rope, prefix_len,
-                             enc_out)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        args = (layer.kind, x, layer.p, cfg, rope, prefix_len, enc_out)
+        x, a, dr = (checkpoint(_remat_block, *args, use_reentrant=False)
+                    if remat else _remat_block(*args))
+        if a is not None:
+            aux, dropped = aux + a, dropped + dr
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, dropped
 
 
 def fwd_train(params: dict, batch: dict, cfg: ModelConfig, *,
               aux_weight: float = 0.01) -> tuple[torch.Tensor, Metrics]:
-    """Next-token loss of ``batch`` (``tokens`` and ``labels``, ``[B, S]``)
-    and its metrics. The unembedding is ``unembed``, or ``embed`` when
-    tied; dense models have no auxiliary loss and drop no token. Only
-    attention blocks train here: the SSD and RG-LRU scans have no gradient
-    yet."""
-    kinds = set(cfg.layer_kinds())
-    if not all(k.startswith("attn") for k in kinds):
-        raise NotImplementedError(
-            f"training {cfg.name}: the {sorted(kinds)} blocks' scans have no "
-            "gradient yet (ROADMAP module item 3)")
-    for what, unported in (("MoE", cfg.moe is not None),
-                           ("encoder-decoder", cfg.enc_dec),
-                           ("VLM-prefix", bool(cfg.vlm_prefix))):
-        if unported:
-            raise NotImplementedError(
-                f"training {cfg.name}: {what} models serve but do not train "
-                "yet (ROADMAP module item 3)")
-    x = fwd_hidden(params, batch["tokens"], cfg)
+    """Next-token loss of ``batch`` and its metrics, as the reference's
+    ``fwd_train``: ``tokens`` and ``labels`` ``[B, S]``, and whisper's stub
+    ``frames [B, T_enc, d]`` or a VLM's ``prefix_embeds [B, P, d]``, whose
+    positions are dropped before the loss. The unembedding is
+    ``unembed``, or ``embed`` when tied; the loss adds ``aux_weight`` times
+    the MoE's auxiliary loss (0 for the other models)."""
+    prefix = batch.get("prefix_embeds")
+    x, aux, dropped = fwd_hidden(params, batch["tokens"], cfg,
+                                 prefix_embeds=prefix,
+                                 frames=batch.get("frames"))
+    if cfg.vlm_prefix:
+        x = x[:, prefix.shape[1]:]
     key = ("embed" if cfg.tie_embeddings or "unembed" not in params
            else "unembed")
     labels = torch.as_tensor(batch["labels"]).to(x.device)
-    loss = unembed_loss(x, params[key], labels)
-    aux = torch.zeros((), dtype=_F32, device=x.device)
-    dropped = torch.zeros((), dtype=_F32, device=x.device)
-    loss = loss + aux_weight * aux
+    loss = unembed_loss(x, params[key], labels) + aux_weight * aux
     return loss, Metrics(loss=loss, aux_loss=aux, dropped=dropped)

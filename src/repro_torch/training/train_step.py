@@ -65,7 +65,9 @@ def global_grad_norm(grads: Any) -> torch.Tensor:
 def make_loss_and_grads(cfg: ModelConfig, hyper: TrainHyper) -> Callable:
     """``(params, batch) -> (loss, metrics, grads)``, accumulating
     ``hyper.accum_steps`` microbatches (f32 accumulators, ``g / a`` and
-    ``loss / a``; the metrics of the last microbatch)."""
+    ``loss / a``; the metrics of the last microbatch). Every key of the
+    batch is split along its first dimension, ``frames`` and
+    ``prefix_embeds`` as the tokens."""
 
     def value_and_grad(params, batch):
         flat, treedef = flatten(params)
@@ -103,7 +105,9 @@ def make_loss_and_grads(cfg: ModelConfig, hyper: TrainHyper) -> Callable:
 
 def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper()):
     """``step(state, batch) -> (state, metrics)``: ``batch`` holds
-    ``tokens`` and ``labels`` ``[B, S]`` on the parameters' device;
+    ``tokens`` and ``labels`` ``[B, S]`` on the parameters' device, and
+    whisper's stub ``frames [B, T_enc, d]`` or a VLM's ``prefix_embeds [B,
+    P, d]``;
     ``metrics`` is ``loss``, ``grad_norm``, ``aux_loss`` and ``dropped``,
     f32 scalars on the card. ``state`` is updated in place."""
     run = make_loss_and_grads(cfg, hyper)

@@ -24,9 +24,7 @@ by ``params_from_numpy``:
   write-back, pools equal bit for bit over 48 steps with evictions;
 - the inclusion invariant of ``tests/test_serving.py``;
 - ``NotImplementedError`` for page sharding, which the port does not
-  serve, and for training the MoE, encoder-decoder and VLM-prefix
-  families, which it serves (``tests/test_torch_serving_breadth.py``) but
-  does not train; and int8 KV pools served (their parity with the reference is
+  serve; and int8 KV pools served (their parity with the reference is
   ``tests/test_torch_int8_kv.py``).
 """
 import dataclasses
@@ -178,7 +176,7 @@ def test_prefill_and_decode_match_reference(name, rng):
     tcfg, tp, toks, lps, _ = _run_both(name, rng, B=2, S0=16, n_dec=12,
                                        max_seq=64, hbm_fraction=0.6)
     # The port's decode against its own full forward.
-    x = fwd_hidden(tp, torch.as_tensor(toks), tcfg)
+    x, _, _ = fwd_hidden(tp, torch.as_tensor(toks), tcfg)
     ue = tp["unembed"] if "unembed" in tp else tp["embed"]
     for j, t in enumerate(range(15, 28)):
         _, rlp = unembed_greedy(x[:, t], ue)
@@ -365,22 +363,6 @@ def test_unsupported_raises(name, over, match):
         teng.make_decode_step(cfg, sc)
     with pytest.raises(NotImplementedError, match=match):
         teng.make_prefill_step(cfg, sc)
-
-
-@pytest.mark.parametrize("name,match", [
-    ("mixtral-8x22b", "MoE"),
-    ("whisper-tiny", "encoder-decoder"),
-    ("paligemma-3b", "VLM"),
-])
-def test_training_refuses_unported_families(name, match):
-    """These families serve (``tests/test_torch_serving_breadth.py``) but
-    do not train yet: ``fwd_train`` refuses them, naming the ROADMAP item,
-    before it reads the parameters or the batch (it would otherwise train
-    paligemma without its prefix and whisper without its encoder)."""
-    from repro_torch.models.transformer import fwd_train
-    cfg = T_ARCHS[name].reduced()
-    with pytest.raises(NotImplementedError, match=f"{match}.*item 3"):
-        fwd_train({}, {}, cfg)
 
 
 @pytest.mark.parametrize("name", ["recurrentgemma-9b", "stablelm-3b"])

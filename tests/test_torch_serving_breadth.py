@@ -147,7 +147,7 @@ def test_fwd_hidden_matches_reference(name, rng):
     toks = rng.integers(0, jcfg.vocab, (2, 20)).astype(np.int32)
     jx, tx = _extras(jcfg, rng, 2)
     want, _, _ = j_fwd_hidden(jp, jnp.asarray(toks), jcfg, SINGLE, **jx)
-    got = fwd_hidden(tp, torch.as_tensor(toks), tcfg, **tx)
+    got, _, _ = fwd_hidden(tp, torch.as_tensor(toks), tcfg, **tx)
     assert got.shape == want.shape == (2, 20 + jcfg.vlm_prefix,
                                        jcfg.d_model)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,

@@ -264,15 +264,6 @@ def test_remat_gives_the_same_step():
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
-def test_scan_blocks_refuse_to_train(arch):
-    cfg = T_ARCHS[arch].reduced()
-    from repro_torch.models.params import init_params
-    params = init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        fwd_train(params, _tbatch(_batch(cfg, B=1, S=8)), cfg)
-
-
 @pytest.mark.parametrize("policy", ["ws", "lru", "lfu"])
 def test_datacache_matches_reference(tmp_path, policy):
     """64 steps of batches over 16 shards, 4 cached, shards per step

@@ -14,7 +14,14 @@ runs on a machine with a card and without the reference package:
   resumed equals the uninterrupted run bit for bit;
 - the training launcher on ``device="cuda"`` (the loss falls), a checkpoint
   of a card state restored onto the card bit for bit, and a non-finite
-  step that leaves the state unchanged.
+  step that leaves the state unchanged;
+- one bf16 step of each family that trains through the scans, the MoE,
+  whisper's encoder or a VLM prefix (reduced): every gradient leaf, and
+  every layer of a stacked one, finite and non-zero, and no hand kernel
+  launched (training runs the plain training forms, not the kernels);
+- the f32-output product of bf16 operands under autograd (cuBLAS's
+  ``out_dtype`` product has no derivative of its own) against autograd
+  through the widened operands: gradients within two bf16 steps.
 """
 import dataclasses
 
@@ -23,7 +30,9 @@ import pytest
 import torch
 
 from repro_torch.configs.archs import ARCHS
+from repro_torch.launch import serve
 from repro_torch.launch.train import run_training
+from repro_torch.models.layers import matmul_f32
 from repro_torch.models.params import init_params
 from repro_torch.training.checkpoint import (CheckpointConfig,
                                              restore_checkpoint,
@@ -31,6 +40,7 @@ from repro_torch.training.checkpoint import (CheckpointConfig,
 from repro_torch.training.compression import init_error_feedback
 from repro_torch.training.optimizer import AdamWConfig, adamw_init
 from repro_torch.training.train_step import (TrainHyper, TrainState,
+                                             make_loss_and_grads,
                                              make_train_step)
 from repro_torch.training.tree import leaves, tree_map
 
@@ -149,3 +159,60 @@ def test_non_finite_step_on_card_leaves_state_unchanged(cuda_device):
     for a, c in zip(leaves(state), before):  # bits, NaNs included
         assert torch.equal(a.reshape(-1).view(torch.uint8),
                            c.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
+                                  "mixtral-8x22b", "whisper-tiny",
+                                  "paligemma-3b"])
+def test_families_train_on_card_through_no_hand_kernel(cuda_device, arch):
+    cfg = ARCHS[arch].reduced()
+    params = init_params(cfg, 0, cuda_device)
+    rng = np.random.default_rng(0)
+    B, S = 2, 32
+    b = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S - (cfg.vlm_prefix or 0))).astype(np.int32))
+        for k in ("tokens", "labels")}
+    for key, n, on in (("prefix_embeds", cfg.vlm_prefix, cfg.vlm_prefix),
+                       ("frames", cfg.enc_seq, cfg.enc_dec)):
+        if on:
+            b[key] = torch.from_numpy(rng.normal(size=(
+                B, n, cfg.d_model)).astype(np.float32) * 0.02).bfloat16()
+    b = {k: v.to(cuda_device) for k, v in b.items()}
+    serve.reset_launch_counts()
+    loss, metrics, grads = make_loss_and_grads(cfg, TrainHyper())(params, b)
+    assert not any(serve.launch_counts().values())
+    assert torch.isfinite(loss)
+    assert (float(metrics.aux_loss) > 0) == (cfg.moe is not None)
+    for g, p in zip(leaves(grads), leaves(params)):
+        assert g.dtype == p.dtype and torch.isfinite(g).all()
+    for name, tree in grads.items():
+        for blk in tree if isinstance(tree, list) else [{"": tree}]:
+            for k, g in blk.items():
+                # A stacked leaf's layers one by one.
+                rows = (g.reshape(g.shape[0], -1)
+                        if name in ("blocks", "enc_blocks") else g[None])
+                assert rows.reshape(rows.shape[0], -1).ne(0).any(1).all(), (
+                    name, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_f32_product_of_bf16_has_the_widened_gradients(cuda_device, batched):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    shape_a, shape_b = ((3, 64, 96), (3, 96, 80)) if batched else (
+        (64, 96), (96, 80))
+    a = torch.randn(shape_a, generator=g, device=cuda_device).bfloat16()
+    b = torch.randn(shape_b, generator=g, device=cuda_device).bfloat16()
+    r = torch.randn(shape_a[:-1] + shape_b[-1:], generator=g,
+                    device=cuda_device)
+    grads = []
+    for fn in (matmul_f32, lambda x, y: torch.matmul(x.float(), y.float())):
+        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+        out = fn(x, y)
+        assert out.dtype == torch.float32
+        grads.append(torch.autograd.grad(torch.sum(out * r), (x, y)))
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=2 ** -7 * float(want.abs().max()))
