@@ -127,6 +127,24 @@ after:
    RG-LRU scan under autograd); (b) two f32 steps of each reduced
    configuration on the card and on the CPU from one state, within
    TRAIN_CPU_TOL (mixtral's routing compared between the devices).
+21. serving across ranks (``repro_torch.launch.spmd.build_serve``):
+   mistral-nemo-12b at full width and 4 of its 40 layers on 4 ranks that
+   share the card (``repro_torch.launch.mesh.spawn_ranks``; gloo, by the
+   backend rule, since NCCL takes one card a rank), a (data 2, model 2)
+   mesh with the pages sharded over the model axis (block-cyclic), 8 x
+   3,072-token prompts (4 a data shard) and SHARDED_STEPS decode steps
+   teacher-forced on a one-card serve of the same configuration and depth
+   run first: (a) each rank's kernel run against its plain run, the tier
+   state equal field for field and the hidden states and logprobs within
+   phase 10's bars; (b) the sharded run against the one-card run within
+   the same bars, (a) printed beside as the noise floor; (c) every page
+   has one owner, and every tier-2 launch of layer 0 reads owned pages
+   only; (d) page shard 1's partial dropped from the combine exceeds the
+   bar, over SHARDED_FAULT_STEPS steps from the kernel run's prefill
+   state. Flash, paged attention and page copy launch on every rank; rank 0
+   holds each against its plain version at the sharded shapes. It prints
+   the backend, each rank's decode ms a step and its collectives a step
+   and their share of the step.
 
 It prints:
 
@@ -155,7 +173,8 @@ It prints:
   ``recurrentgemma_``; flash, paged attention and page copy at phases
   17-19's shapes under ``whisper_enc_`` / ``whisper_cross_`` /
   ``whisper_self_`` (flash) or ``whisper_``, ``vlm_prefix_`` and ``moe_``
-  keys);
+  keys; and phase 21's sharded shapes of flash, paged attention and page
+  copy under ``sharded_`` keys, rank 0's, beside the one-card ones);
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits nonzero. Without CUDA, or without the
@@ -354,6 +373,21 @@ MOE_SERVE = dict(SERVE_SHAPE, arch="mixtral-8x22b", layers=8, tag="moe serve",
                  hidden_tol=HIDDEN_TOL, logprob_tol=0.1, quantile=0.5,
                  key="moe", flash_keys=dict(self="moe"))
 
+# Phase 21: mistral-nemo-12b served by 4 ranks that share the card, on a
+# (data 2, model 2) mesh with its pages sharded over the model axis
+# (block-cyclic), at full width and 4 of its 40 layers, 8 x 3,072-token
+# prompts (4 a data shard) and SHARDED_STEPS teacher-forced decode steps;
+# the planted fault (page shard 1's partial dropped from the combine) over
+# SHARDED_FAULT_STEPS of them, from the kernel run's prefill state. Gloo
+# moves about 0.45 GB/s a rank between ranks that share the card, and
+# ZeRO-3 gathers every layer's weights and the embedding and unembedding
+# every step (4.2 s a step at 8 layers), so the steps were cut from 33 to
+# 4, then the layers from 8 to 4 (PERF.md §4).
+SHARDED_STEPS = 4
+SHARDED_FAULT_STEPS = 2
+SHARDED_SERVE = dict(SERVE_SHAPE, arch="mistral-nemo-12b", layers=4,
+                     new=SHARDED_STEPS + 1, mesh=((2, 2), ("data", "model")),
+                     page_axes=("model",), mapping="block_cyclic")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1306,9 +1340,9 @@ def _with_hidden(run_fn):
     hidden = []
     unembed0 = eng.unembed_greedy
 
-    def hook(x, w):
+    def hook(x, w, *a):
         hidden.append(x.float())
-        return unembed0(x, w)
+        return unembed0(x, w, *a)
     eng.unembed_greedy = hook
     try:
         res = run_fn()
@@ -3833,15 +3867,15 @@ def phase_family_serve(S: dict, dev=torch.device("cuda")) -> dict:
             cap["copy"] = (dst, src.clone(), di.clone(), si.clone())
         return copy0(dst, src, di, si)
 
-    def moe_hook(x, *w):
-        out = moe0(x, *w)
+    def moe_hook(x, *w, **kw):
+        out = moe0(x, *w, **kw)
         if x.shape[0] > B and len(cap["dropped"]) < L:  # the prefill's
             cap["dropped"].append(float(out.dropped))
         return out
 
-    def cross_hook(x, p, cfg_, ck, cv):
+    def cross_hook(x, p, cfg_, ck, cv, *a):
         cap.setdefault("cross", (x.clone(), p, cfg_, ck, cv))
-        return cross0(x, p, cfg_, ck, cv)
+        return cross0(x, p, cfg_, ck, cv, *a)
 
     fa.flash_attention, pa.paged_attention, pg.page_copy = (
         flash_hook, paged_hook, copy_hook)
@@ -3912,11 +3946,11 @@ def phase_family_serve(S: dict, dev=torch.device("cuda")) -> dict:
     if cfg.enc_dec:
         seen = dict(n=0)
 
-        def zero_layer0(x, p, cfg_, ck, cv):
+        def zero_layer0(x, p, cfg_, ck, cv, *a):
             seen["n"] += 1
             if seen["n"] % L == 1:  # the first decoder layer of each step
                 ck, cv = torch.zeros_like(ck), torch.zeros_like(cv)
-            return cross0(x, p, cfg_, ck, cv)
+            return cross0(x, p, cfg_, ck, cv, *a)
         runs["fault: layer 0's cross-attention keys and values zeroed"] = (
             lambda: setattr(eng, "_decode_cross_attention", zero_layer0),
             lambda: setattr(eng, "_decode_cross_attention", cross0), False)
@@ -3927,9 +3961,9 @@ def phase_family_serve(S: dict, dev=torch.device("cuda")) -> dict:
             lambda: setattr(fa, "flash_attention", no_prefix),
             lambda: setattr(fa, "flash_attention", flash0), False)
     if cfg.moe is not None:
-        def top1(x, *w):
+        def top1(x, *w, **kw):
             *ws, mc = w
-            return moe0(x, *ws, dataclasses.replace(mc, top_k=1))
+            return moe0(x, *ws, dataclasses.replace(mc, top_k=1), **kw)
         runs["fault: top-1 routing instead of top-2"] = (
             lambda: setattr(moe, "moe_swiglu", top1),
             lambda: setattr(moe, "moe_swiglu", moe0), False)
@@ -4027,6 +4061,407 @@ def phase_family_serve(S: dict, dev=torch.device("cuda")) -> dict:
     return out
 
 
+def _clone(x):
+    """A copy of a decode state's tensors (in tuples, lists and dicts)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+def _sharded_run(prefill, decode, params, prompts, forced, steps: int,
+                 spec, S: dict, n_promote: int, state0=None) -> dict:
+    """This rank's prefill (or a copy of ``state0``, a prefill's state) and
+    ``steps`` teacher-forced decode steps (pages promoted every
+    ``promote_every`` steps), each step timed from a synchronized card to
+    a synchronized card, with the final hidden state that each step
+    unembeds and the collectives of each step; ``state0`` in the result
+    is a copy of the prefill's state."""
+    from repro_torch.distributed import axes as dax
+    from repro_torch.serving import engine as eng
+    from repro_torch.serving import kvpool as kvp
+    hidden, lps, toks, ms, coll = [], [], [], [], []
+    unembed0 = eng.unembed_greedy
+
+    def hook(x, w, *a):
+        hidden.append(x.float())
+        return unembed0(x, w, *a)
+    eng.unembed_greedy = hook
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if state0 is None:
+            state, (tok, lp) = prefill(params, prompts)
+            state0 = _clone(state)
+            toks.append(tok)
+            lps.append(lp)
+        else:
+            state = _clone(state0)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        for t in range(steps):
+            dax.reset_collective_stats()
+            t0 = time.perf_counter()
+            state, (tok, lp) = decode(params, state, forced[:, t])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            coll.append(dax.collective_stats())
+            toks.append(tok)
+            lps.append(lp)
+            if state.kv is not None and (
+                    t % S["promote_every"] == S["promote_every"] - 1):
+                state = state._replace(kv=kvp.promote_pages(
+                    state.kv, spec, n_promote))
+    finally:
+        eng.unembed_greedy = unembed0
+    return dict(state=state, state0=state0,
+                hidden=torch.stack(hidden).cpu(),
+                lp=torch.stack(lps, 1).float().cpu().numpy(),
+                tok=torch.stack(toks, 1).cpu().numpy(), ms=ms, coll=coll,
+                prefill_s=prefill_s)
+
+
+def _kv_ints(kv) -> dict:
+    out = dict(page_slot=kv.page_slot, t2_slot=kv.t2_slot,
+               lengths=kv.lengths, t=kv.t, t1_reads=kv.t1_reads,
+               t2_reads=kv.t2_reads, evictions=kv.evictions,
+               writebacks=kv.writebacks, key=torch.tensor(kv.key),
+               weights=kv.ols.weights.view(torch.int32))
+    for name, x in zip(kv.meta._fields, kv.meta):
+        out["meta_" + name] = x
+    for name, x in zip(kv.ols._fields, kv.ols):
+        out["ols_" + name] = x
+    return {k: v.cpu().numpy().copy() for k, v in out.items()}
+
+
+def _sharded_rank(rank: int, dev, S: dict, prompts, forced) -> dict:
+    """One rank of phase 21: its shards of mistral-nemo-12b, the kernel
+    run (collectives timed), the plain run and the faulted run, each
+    teacher-forced on the one-card run's tokens; rank 0 also holds each
+    serving kernel against its plain version at the sharded shapes."""
+    from repro_torch.distributed import axes as dax
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import page_gather as pg
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain_versions
+    from repro_torch.kernels.ref import (attention_ref, page_copy_ref,
+                                         paged_attention_ref)
+    from repro_torch.launch import serve, spmd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.attention import Partial
+    from repro_torch.serving import engine as eng
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*S["mesh"])
+    t0 = time.perf_counter()
+    cfg, full = _build_serve(S, dev)
+    sc = eng.ServeConfig(
+        max_seq=S["max_seq"], batch_local=S["requests"] // mesh.size("data"),
+        page_axes=S["page_axes"], mapping=S["mapping"],
+        hbm_fraction=S["hbm_fraction"])
+    prefill, decode, specs = spmd.build_serve(cfg, mesh, sc)
+    params = spmd.shard_for_rank(full, cfg, mesh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = spmd.local_batch(torch.as_tensor(prompts), specs)
+    forced = spmd.local_batch(torch.as_tensor(forced), specs).to(dev)
+    steps, L = forced.shape[1], cfg.n_layers
+    args = (prefill, decode, params, prompts, forced)
+
+    # The kernel run: launches counted, kernel inputs captured (layer 0's
+    # prefill flash call, its two paged launches at the last step, the
+    # first prefill copy) and every tier-2 table of layer 0 kept for (c).
+    cap: dict = dict(t2=[])
+    calls = dict(paged=0)
+    flash0, paged0, copy0 = fa.flash_attention, pa.paged_attention, \
+        pg.page_copy
+
+    def flash_hook(q, k, v, **kw):
+        cap.setdefault("flash", (q.clone(), k.clone(), v.clone(), kw))
+        return flash0(q, k, v, **kw)
+
+    def paged_hook(q, pool, slot, live, window=0, scale=None):
+        i = calls["paged"]
+        calls["paged"] += 1
+        if i % (2 * L) == 1:
+            cap["t2"].append(slot.clone())
+        if i - (steps - 1) * 2 * L in (0, 1):
+            cap.setdefault("paged", []).append(
+                (q.clone(), pool, slot.clone(), live.clone(), window))
+        return paged0(q, pool, slot, live, window, scale=scale)
+
+    def copy_hook(dst, src, di, si):
+        cap.setdefault("copy", (dst, src.clone(), di.clone(), si.clone()))
+        return copy0(dst, src, di, si)
+
+    fa.flash_attention, pa.paged_attention, pg.page_copy = (
+        flash_hook, paged_hook, copy_hook)
+    serve.reset_launch_counts()
+    dax.time_collectives(True)
+    try:
+        run = _sharded_run(*args, steps, specs.kv_spec, S, sc.n_promote)
+    finally:
+        dax.time_collectives(False)
+        fa.flash_attention, pa.paged_attention, pg.page_copy = (
+            flash0, paged0, copy0)
+    launches = serve.launch_counts()
+    kv = run["state"].kv
+    t2_tables = [t.cpu() for t in cap.pop("t2")]
+    kernels = {}
+    if rank == 0:
+        q, k, v, kw = cap["flash"]
+        fa.flash_attention_cuda(q, k, v, **kw)
+        f_ms, got = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                            reps=3)
+        fp_ms, want = cuda_ms(lambda: attention_ref(q, k, v, **kw))
+        f_exc = _bf16_step_excess(got, want)
+        sdpa = dict(is_causal=True, enable_gqa=True)
+        f_lib, _ = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, **sdpa), reps=3)
+        fb = _flash_bound(q, k)
+        kernels["flash_attention"] = dict(
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            bf16_step_excess=f_exc, ms=f_ms, plain_ms=fp_ms,
+            library_ms=f_lib, bound_ms=fb["bound_ms"],
+            bound_by=fb["bound_by"],
+            shape=f"q {list(q.shape)}, k/v {list(k.shape)}, causal, bf16")
+        del got, want
+        first = cap["paged"]
+        p_err = 0.0
+        for c in first:
+            for g, w in zip(pa.paged_attention_cuda(*c),
+                            paged_attention_ref(*c)):
+                p_err = max(p_err, _rel_err(g, w))
+        p_ms, _ = cuda_ms(lambda: [pa.paged_attention_cuda(*c)
+                                   for c in first], reps=10)
+        pp_ms, _ = cuda_ms(lambda: [paged_attention_ref(*c) for c in first],
+                           reps=3)
+        pb = _paged_bound(first, cfg.page_size)
+        kernels["paged_attention"] = dict(
+            max_abs_err=p_err, ms=p_ms, plain_ms=pp_ms,
+            bound_ms=pb["bound_ms"], bound_by=pb["bound_by"],
+            shape=f"both tiers of layer 0 at the last decode step, q "
+                  f"{list(first[0][0].shape)}, pools {list(kv.pool1.shape)}"
+                  f" / {list(kv.pool2.shape)} bf16, owned pages only")
+        dst, src, di, si = cap["copy"]
+        check_page_copy("sharded serve", (
+            ("prefill population", kv.pool2, dst, src, di, si),))
+        di_c, si_c = pg.card_index(dev, di, si)
+        pg.page_copy_cuda(dst, src, di_c, si_c)
+        c_ms, _ = cuda_ms(lambda: pg.page_copy_cuda(dst, src, di_c, si_c),
+                          reps=5)
+        cp_ms, _ = cuda_ms(lambda: page_copy_ref(dst, src, di, si))
+        live = (di_c >= 0) & (si_c >= 0)
+        dl, sl = di_c[live].long(), si_c[live].long()
+        lib_ms, _ = cuda_ms(lambda: dst.__setitem__(dl, src[sl]), reps=5)
+        row_bytes = dst[0].numel() * dst.element_size()
+        cb = _copy_bound(_live_pairs(di, si), row_bytes)
+        kernels["page_copy"] = dict(
+            max_abs_err=0.0, ms=c_ms, plain_ms=cp_ms, library_ms=lib_ms,
+            bound_ms=cb["bound_ms"], bound_by=cb["bound_by"],
+            shape=f"{_live_pairs(di, si)} owned rows of {row_bytes} B into "
+                  f"one layer of tier 2 (prefill population)")
+    cap.clear()
+
+    # The plain run, and the planted fault on the kernel path: page shard
+    # 1's partial dropped from the combine (every rank patches; the ranks
+    # of page shard 1 send the empty partial).
+    with plain_versions():
+        plain = _sharded_run(*args, steps, specs.kv_spec, S, sc.n_promote)
+    comb0 = eng.combine_shards
+
+    def drop(part, ax, names):
+        if specs.page_shard == 1:
+            part = Partial(torch.zeros_like(part.acc),
+                           torch.full_like(part.m, -1e30),
+                           torch.zeros_like(part.l))
+        return comb0(part, ax, names)
+    eng.combine_shards = drop
+    try:
+        bad = _sharded_run(prefill, decode, params, prompts,
+                           forced[:, :S["fault_steps"]], S["fault_steps"],
+                           specs.kv_spec, S, sc.n_promote,
+                           state0=run.pop("state0"))
+    finally:
+        eng.combine_shards = comb0
+    plain.pop("state0")
+    bad.pop("state0")
+    return dict(
+        rank=rank, coords=mesh.coords(), backend=mesh.backend,
+        batch_shard=specs.batch_shard, page_shard=specs.page_shard,
+        init_s=init_s, launches=launches, kernels=kernels,
+        t2_tables=t2_tables, owned=(kv.t2_slot >= 0).numpy(),
+        t2_slot=kv.t2_slot.numpy(), kv=_kv_ints(kv),
+        kv_plain=_kv_ints(plain["state"].kv),
+        **{f"{name}_{k}": v for name, r in (("run", run), ("plain", plain),
+                                            ("bad", bad))
+           for k, v in r.items() if k != "state"})
+
+
+def phase_sharded_serve(dev=torch.device("cuda")) -> dict:
+    """Phase 21: mistral-nemo-12b served by 4 ranks sharing the card, on a
+    (data 2, model 2) mesh with page_axes ("model",): (a) the kernel run
+    against the plain run of the same sharded steps, (b) against the
+    one-card serve of the same configuration and depth, (c) every page has
+    one owner and each rank reads from tier 2 only the pages it owns, (d)
+    a planted fault (a page shard's partial dropped) above the bar.
+    Returns the serving kernels' ``sharded_`` keys."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    S = dict(SHARDED_SERVE, fault_steps=SHARDED_FAULT_STEPS)
+    tag = "sharded serve"
+    steps = S["new"] - 1
+    t_phase = time.perf_counter()
+    cfg, params = _build_serve(S, dev)
+    prompts = np.random.default_rng(21).integers(
+        0, cfg.vocab, (S["requests"], S["prompt"])).astype(np.int32)
+    S["max_seq"] = -(-(S["prompt"] + S["new"]) // cfg.page_size) * \
+        cfg.page_size
+    # The one-card serve of the same configuration and depth: the tokens
+    # every sharded run is fed, and the reference of check (b).
+    serve.reset_launch_counts()
+    one, one_h = _with_hidden(lambda: serve.serve(
+        cfg, params, prompts, new=S["new"], hbm_fraction=S["hbm_fraction"],
+        promote_every=S["promote_every"], max_seq=S["max_seq"]))
+    forced = one.tokens[:, :-1]
+    one_lp, one_ms = one.logprobs, 1e3 * one.decode_s / steps
+    del params, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_ranks = int(np.prod(S["mesh"][0]))
+    backend = backend_for(dev, n_ranks)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_sharded_rank, n_ranks, (S, prompts, forced),
+                        device="cuda")
+    ranks_s = time.perf_counter() - t0
+    B_loc = S["requests"] // S["mesh"][0][0]
+
+    # (a) kernel run against plain run, rank by rank; (b) against the
+    # one-card run; (d) the planted fault against the plain run.
+    a_h = a_lp = b_h = b_lp = d_h = 0.0
+    for r in ranks:
+        if r["backend"] != backend:
+            raise AssertionError(f"[{tag}] rank {r['rank']} ran "
+                                 f"{r['backend']}, the rule says {backend}")
+        for k, v in r["kv"].items():
+            if not np.array_equal(v, r["kv_plain"][k]):
+                raise AssertionError(f"[{tag}] rank {r['rank']}: kernel run "
+                                     f"!= plain run in {k}")
+        a_h = max(a_h, _hidden_err(r["run_hidden"], r["plain_hidden"]))
+        a_lp = max(a_lp, _lp_err(r["run_lp"], r["plain_lp"]))
+        rows = slice(r["batch_shard"] * B_loc, (r["batch_shard"] + 1) * B_loc)
+        b_h = max(b_h, _hidden_err(r["run_hidden"], one_h[:, rows].cpu()))
+        b_lp = max(b_lp, _lp_err(r["run_lp"], one_lp[rows]))
+        # The faulted run starts from the prefill's state: its steps are
+        # the plain run's from the second hidden state on.
+        d_h = max(d_h, _hidden_err(r["bad_hidden"], r["plain_hidden"][1:]))
+        ln = r["launches"]
+        if not (ln["flash_attention"] == cfg.n_layers and
+                ln["paged_attention"] == 2 * cfg.n_layers * steps and
+                ln["page_copy"] > 0):
+            raise AssertionError(f"[{tag}] rank {r['rank']} launches {ln}")
+    # Tokens and logprobs equal across the ranks of a batch shard.
+    for r in ranks:
+        for o in ranks:
+            if o["batch_shard"] == r["batch_shard"] and not (
+                    np.array_equal(o["run_tok"], r["run_tok"])
+                    and np.array_equal(o["run_lp"], r["run_lp"])):
+                raise AssertionError(f"[{tag}] ranks {r['rank']} and "
+                                     f"{o['rank']} disagree on tokens")
+    # (c) one owner a page; tier-2 reads of owned pages only.
+    n_reads = 0
+    for shard in {r["batch_shard"] for r in ranks}:
+        grp = [r for r in ranks if r["batch_shard"] == shard]
+        if not (np.sum([r["owned"] for r in grp], 0) == 1).all():
+            raise AssertionError(f"[{tag}] a page without exactly one owner")
+        for r in grp:
+            for t in r["t2_tables"]:
+                on = t.numpy() >= 0
+                n_reads += int(on.sum())
+                if not (r["owned"][on].all() and np.array_equal(
+                        t.numpy()[on], r["t2_slot"][on])):
+                    raise AssertionError(f"[{tag}] rank {r['rank']} read a "
+                                         f"page it does not own from tier 2")
+    control = {"noise floor (a): kernel vs plain, sharded": (a_h, a_lp)}
+    log(f"[{tag}] {cfg.name} ({_depth(cfg, S)}) on {n_ranks} ranks sharing "
+        f"the card ({card_line()}), mesh {S['mesh'][0]} "
+        f"{S['mesh'][1]}, page_axes {S['page_axes']}, {S['mapping']}, "
+        f"backend {backend}: {S['requests']} x {S['prompt']} prompts, "
+        f"{steps} decode steps; one-card run {one_ms:.2f} ms/step; ranks "
+        f"spawned and done in {ranks_s:.1f} s; tier-2 reads of layer 0 "
+        f"checked: {n_reads}, all owned")
+    for r in ranks:
+        per = [sum(v[2] for v in c.values()) for c in r["run_coll"]]
+        n_c = [sum(v[0] for v in c.values()) for c in r["run_coll"]]
+        by = {}
+        for c in r["run_coll"]:
+            for k, v in c.items():
+                by[k] = (by.get(k, (0, 0, 0.0))[0] + v[0],
+                         by.get(k, (0, 0, 0.0))[1] + v[1],
+                         by.get(k, (0, 0, 0.0))[2] + v[2])
+        med = float(np.median(r["run_ms"]))
+        log(f"[{tag}] rank {r['rank']} {r['coords']} (page shard "
+            f"{r['page_shard']}, batch shard {r['batch_shard']}): init "
+            f"{r['init_s']:.1f} s, prefill {r['run_prefill_s']:.3f} s, "
+            f"decode {med:.1f} ms/step median (collectives timed, the card "
+            f"synchronized around each), collectives {np.median(n_c):.0f} "
+            f"a step taking {1e3 * np.median(per):.1f} ms "
+            f"({100 * 1e3 * np.median(per) / med:.1f}% of the step); by "
+            f"kind over {steps} steps (calls, MB sent, s): "
+            + ", ".join(f"{k} ({v[0]}, {v[1] / 1e6:.0f}, {v[2]:.2f})"
+                        for k, v in by.items())
+            + f"; launches {r['launches']}; plain decode "
+            f"{float(np.median(r['plain_ms'])):.1f} ms/step; t1 reads "
+            f"{int(r['kv']['t1_reads'][0])}, t2 reads "
+            f"{int(r['kv']['t2_reads'][0])}, evictions "
+            f"{int(r['kv']['evictions'][0])}")
+    log(f"[{tag}] (b) sharded kernel run vs the one-card kernel run: "
+        f"hidden {b_h:.3e}, logprobs {b_lp:.3e}; (a) noise floor beside "
+        f"it, kernel vs plain on the same shards: hidden {a_h:.3e}, "
+        f"logprobs {a_lp:.3e}; (d) page shard 1's partial dropped, first "
+        f"{S['fault_steps']} steps: hidden {d_h:.3e}")
+    _check_bars(tag + " (a)", a_h, a_lp, {}, {}, steps)
+    _check_bars(tag + " (b)", b_h, b_lp, control,
+                {"fault (d): page shard 1's partial dropped": (d_h, 0.0)},
+                S["fault_steps"])
+    k0 = ranks[0]["kernels"]
+    for name, e in k0.items():
+        log(f"[{tag}, {name} vs plain] rank 0, {e['shape']}: max |diff| "
+            f"{e['max_abs_err']:.3e}, kernel {e['ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.3f} ms, library "
+            f"{e.get('library_ms') or float('nan'):.4f} ms, bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
+    if not k0["flash_attention"]["bf16_step_excess"] <= 1:
+        raise AssertionError(f"[{tag}] flash kernel != plain at the sharded "
+                             f"shape")
+    if not k0["paged_attention"]["max_abs_err"] <= PAGED_REL_TOL:
+        raise AssertionError(f"[{tag}] paged kernel != plain at the sharded "
+                             f"shape")
+    log(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
+    out = {}
+    for name in ("flash_attention", "paged_attention", "page_copy"):
+        e = k0[name]
+        out[name] = {
+            "sharded_launches": sum(r["launches"][name] for r in ranks),
+            "sharded_ms": e["ms"], "sharded_plain_ms": e["plain_ms"],
+            "sharded_library_ms": e.get("library_ms"),
+            "sharded_bound_ms": e["bound_ms"],
+            "sharded_bound_by": e["bound_by"],
+            "sharded_max_abs_err": e["max_abs_err"],
+            "sharded_shape": e["shape"] + f" (rank 0 of {n_ranks}, "
+                                          f"{backend}, one card shared)"}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4056,7 +4491,9 @@ def main() -> int:
     breadth = [phase_family_serve(S) for S in (WHISPER_SERVE, VLM_SERVE,
                                                MOE_SERVE)]
     phase_train_families()
+    sharded = phase_sharded_serve()
     for entry in serving:
+        entry.update(sharded[entry["name"]])
         entry.update(at_rg[entry["name"]])
         entry.update(int8[entry["name"]])
         for fam in breadth:

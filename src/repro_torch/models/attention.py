@@ -10,8 +10,13 @@ computes, against which decode is checked.
 
 ``attention_partial`` / ``combine_partials`` expose the online-softmax
 partial ``(acc, m, l)``. On one card, ``combine_partials`` merges the
-tier-1 and tier-2 partials of one decode step (the reference merges the
-partials of page shards with collectives).
+tier-1 and tier-2 partials of one decode step. Across page shards each
+rank merges its two tiers with ``merge_partials`` and
+``combine_shards`` puts the ranks' partials together, the reference's
+``combine_partials``: a ``pmax`` of ``m`` and one ``psum`` of ``(acc,
+l)`` rescaled to it, O(B H hd) bytes, and no page moves. A rank that owns
+no live token of a row holds the empty partial (acc 0, m -1e30, l 0),
+which the rescale turns into nothing.
 """
 from __future__ import annotations
 
@@ -20,8 +25,10 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch.distributed.axes import Axes
+
 __all__ = ["blockwise_attention", "Partial", "attention_partial",
-           "combine_partials"]
+           "combine_partials", "merge_partials", "combine_shards"]
 
 _F32 = torch.float32
 _NEG = -1e30
@@ -134,4 +141,31 @@ def combine_partials(parts: Sequence[Partial]) -> torch.Tensor:
         lc, ac = p.l * corr, p.acc * corr[..., None]
         l_g = lc if l_g is None else l_g + lc
         acc_g = ac if acc_g is None else acc_g + ac
+    return acc_g / torch.clamp(l_g, min=1e-30)[..., None]
+
+
+def merge_partials(parts: Sequence[Partial]) -> Partial:
+    """The partial over the union of disjoint positions, unnormalized:
+    ``m`` the maximum, ``l`` and ``acc`` rescaled to it and summed."""
+    m_g = parts[0].m
+    for p in parts[1:]:
+        m_g = torch.maximum(m_g, p.m)
+    l_g = acc_g = None
+    for p in parts:
+        corr = torch.exp(p.m - m_g)
+        lc, ac = p.l * corr, p.acc * corr[..., None]
+        l_g = lc if l_g is None else l_g + lc
+        acc_g = ac if acc_g is None else acc_g + ac
+    return Partial(acc=acc_g, m=m_g, l=l_g)
+
+
+def combine_shards(part: Partial, ax: Axes, names) -> torch.Tensor:
+    """Combine the page shards' partials over the mesh axes ``names``
+    (flash-decoding across ranks) and normalize: ``[B, H, hd]`` f32."""
+    m_g = ax.pmax_many(part.m, names)
+    corr = torch.exp(part.m - m_g)
+    packed = torch.cat([part.acc * corr[..., None],
+                        (part.l * corr)[..., None]], dim=-1)
+    packed = ax.psum_many(packed, names)
+    acc_g, l_g = packed[..., :-1], packed[..., -1]
     return acc_g / torch.clamp(l_g, min=1e-30)[..., None]

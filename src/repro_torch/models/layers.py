@@ -17,9 +17,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense", "rms_norm", "rope_tables", "apply_rope",
-           "sinusoidal_positions", "embed", "unembed_loss", "unembed_greedy",
-           "mlp_swiglu", "mlp_gelu", "matmul_f32", "causal_conv1d"]
+from repro_torch.distributed.axes import SINGLE, Axes
+
+__all__ = ["dense", "rms_norm", "rms_norm_tp", "tp_out", "rope_tables",
+           "apply_rope", "sinusoidal_positions", "embed", "unembed_loss",
+           "unembed_greedy", "mlp_swiglu", "mlp_gelu", "matmul_f32",
+           "causal_conv1d"]
 
 _F32 = torch.float32
 # Vocabulary rows of the unembedding converted to f32 at a time.
@@ -37,6 +40,28 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(_F32))).to(x.dtype)
+
+
+def rms_norm_tp(x: torch.Tensor, scale: torch.Tensor, eps: float, ax: Axes,
+                full_width: int) -> torch.Tensor:
+    """RMSNorm over a TP-sharded last dim: the sum of squares summed over
+    the model axis, so the normalizer is the unsharded one."""
+    xf = x.to(_F32)
+    ss = torch.sum(xf * xf, dim=-1, keepdim=True)
+    if x.shape[-1] != full_width:
+        ss = ax.psum(ss, ax.model)
+    y = xf * torch.rsqrt(ss / full_width + eps)
+    return (y * (1.0 + scale.to(_F32))).to(x.dtype)
+
+
+def tp_out(x: torch.Tensor, w: torch.Tensor, ax: Axes,
+           reduce_dtype=_F32) -> torch.Tensor:
+    """A TP partial product ``x @ w`` (x ``[..., k]``): the f32 sums of
+    the local block summed over the model axis in ``reduce_dtype``, then
+    cast to x's dtype."""
+    out = matmul_f32(x.reshape(-1, x.shape[-1]), w)
+    out = ax.psum(out.to(reduce_dtype), ax.model)
+    return out.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype)
 
 
 def rope_tables(positions: torch.Tensor, hd: int, theta: float
@@ -75,9 +100,18 @@ def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    """tokens [...] int -> [..., d]."""
-    return emb[tokens.long()]
+def embed(tokens: torch.Tensor, emb: torch.Tensor, ax: Axes = SINGLE
+          ) -> torch.Tensor:
+    """tokens [...] int -> [..., d]. Under a model axis ``emb`` is this
+    rank's block of the vocabulary: each rank looks up the tokens it
+    holds, zeros elsewhere, and the blocks are summed."""
+    if ax.model is None:
+        return emb[tokens.long()]
+    v_local = emb.shape[0]
+    local = tokens.long() - ax.index(ax.model) * v_local
+    ok = (local >= 0) & (local < v_local)
+    out = emb[local.clamp(0, v_local - 1)] * ok[..., None].to(emb.dtype)
+    return ax.psum(out, ax.model)
 
 
 def unembed_loss(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
@@ -100,28 +134,44 @@ def unembed_loss(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
     return torch.sum(nll) / denom
 
 
-def unembed_greedy(x: torch.Tensor, emb: torch.Tensor
+def unembed_greedy(x: torch.Tensor, emb: torch.Tensor, ax: Axes = SINGLE
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Greedy next token: x [B, d] -> (token [B] int32, logprob [B] f32).
 
     The logits are f32 products of x and the unembedding, built a chunk of
     the vocabulary at a time (so no f32 copy of the whole table is held).
-    Ties go to the lowest id, as the reference's and ``torch.argmax``."""
+    Ties go to the lowest id, as the reference's and ``torch.argmax``.
+    Under a model axis ``emb`` is this rank's block of the vocabulary, and
+    no logit leaves its rank: the maximum is a ``pmax``, the softmax's sum
+    a ``psum``, and the token the lowest id among the ranks that hold the
+    maximum (``pmax`` of the negated candidates)."""
     xf = x.to(_F32)
     logits = torch.cat([
         torch.matmul(xf, emb[v0:v0 + _UNEMBED_CHUNK].to(_F32).t())
         for v0 in range(0, emb.shape[0], _UNEMBED_CHUNK)], dim=-1)
-    m = torch.max(logits, dim=-1).values
+    m_loc = torch.max(logits, dim=-1).values
     token = torch.argmax(logits, dim=-1).to(torch.int32)
-    se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
-    return token, m - torch.log(se)
+    if ax.model is None:
+        se = torch.sum(torch.exp(logits - m_loc[..., None]), dim=-1)
+        return token, m_loc - torch.log(se)
+    m = ax.pmax(m_loc, ax.model)
+    se = ax.psum(torch.sum(torch.exp(logits - m[..., None]), dim=-1),
+                 ax.model)
+    cand = torch.where(m_loc >= m,
+                       token + ax.index(ax.model) * emb.shape[0],
+                       torch.iinfo(torch.int32).max)
+    return -ax.pmax(-cand, ax.model), m - torch.log(se)
 
 
-def mlp_swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
+def mlp_swiglu(x, w_gate, w_up, w_down, ax: Axes = SINGLE) -> torch.Tensor:
+    """SwiGLU; under a model axis ``d_ff`` is this rank's block and the
+    down projection a TP partial sum (:func:`tp_out`)."""
     g = dense(x, w_gate)
     u = dense(x, w_up)
     h = F.silu(g.to(_F32)).to(x.dtype) * u
-    return torch.matmul(h, w_down)
+    if ax.model is None:
+        return torch.matmul(h, w_down)
+    return tp_out(h, w_down, ax)
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -161,14 +211,15 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(_F32), b.to(_F32))
 
 
-def mlp_gelu(x, w1, b1, w2, b2) -> torch.Tensor:
+def mlp_gelu(x, w1, b1, w2, b2, ax: Axes = SINGLE) -> torch.Tensor:
     """Whisper's FFN: ``gelu(x w1 + b1) w2 + b2``, with ``b1`` added in x's
     dtype, the tanh-approximated gelu (``jax.nn.gelu``'s default) in f32,
-    and ``b2`` added in f32 to the unrounded down projection."""
+    and ``b2`` added in f32 to the unrounded down projection (summed over
+    the model axis first, under one)."""
     h = dense(x, w1) + b1.to(x.dtype)
     h = F.gelu(h.to(_F32), approximate="tanh").to(x.dtype)
     out = matmul_f32(h.reshape(-1, h.shape[-1]), w2)
-    out = out.reshape(h.shape[:-1] + (w2.shape[-1],))
+    out = ax.psum(out, ax.model).reshape(h.shape[:-1] + (w2.shape[-1],))
     return (out + b2.to(_F32)).to(x.dtype)
 
 

@@ -20,6 +20,10 @@ The experts run one at a time: at a 3,072-token prefill of 8 sequences
 and up products would take 4 GB each; one expert's take 0.5 GB. The
 expert products stay ``torch.matmul``: the reference computes them
 outside any Pallas kernel.
+
+Under a model axis each expert's ``d_ff`` is this rank's block, and the
+combined output a TP partial sum over the axis, as the reference's
+``psum``.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed.axes import SINGLE, Axes
 from repro_torch.models.layers import matmul_f32
 
 __all__ = ["MoEOut", "capacity", "route", "moe_swiglu"]
@@ -62,7 +67,8 @@ def route(x: torch.Tensor, w_router: torch.Tensor, cfg: MoEConfig
 
 def moe_swiglu(x: torch.Tensor, w_router: torch.Tensor,
                w_gate: torch.Tensor, w_up: torch.Tensor,
-               w_down: torch.Tensor, cfg: MoEConfig) -> MoEOut:
+               w_down: torch.Tensor, cfg: MoEConfig, ax: Axes = SINGLE
+               ) -> MoEOut:
     """x ``[T, d]``, router ``[d, E]``, experts ``[E, d, f]`` / ``[E, f,
     d]`` -> :class:`MoEOut`."""
     T, d = x.shape
@@ -109,4 +115,5 @@ def moe_swiglu(x: torch.Tensor, w_router: torch.Tensor,
     # Combine: each slot's output weighted by its router probability.
     w = top_p.reshape(-1) * keep
     y = (flat[slot] * w[:, None]).reshape(T, K, d).sum(1)
+    y = ax.psum(y, ax.model)  # TP partial sum (f32)
     return MoEOut(y=y.to(x.dtype), aux_loss=aux, dropped=dropped)

@@ -12,26 +12,49 @@ xnorm``); whisper's FFN is a gelu MLP with biases (``w1 b1 w2 b2``), an
 MoE model's an expert bank behind a router (``w_router`` ``[d, E]``,
 ``w_gate`` / ``w_up`` ``[E, d, f]``, ``w_down`` ``[E, f, d]``).
 
-The reference's mesh and FSDP machinery (``MeshSizes``, ``fsdp_dims``,
-partition specs) has no counterpart here: the port serves on one card.
+Each ``ParamDef`` also names the dim sharded over the mesh's ``"data"``
+axis (FSDP, ZeRO-3: gathered layer by layer in the forward pass) and the
+dim sharded over ``"model"`` (TP), as the reference's do. Parameter
+shapes stay global: only the dims that are sharded depend on the mesh
+(:class:`MeshSizes`). :func:`param_pspecs` gives each leaf's partition as
+a tuple of axis names (the reference's ``PartitionSpec`` as a plain
+tuple), :func:`fsdp_dims` each leaf's FSDP dim in the per-layer view,
+and :func:`shard_params` slices a full tree into one rank's block.
+
+TP rule (:meth:`MeshSizes.tp`): a dim is TP-sharded only when the mesh's
+model axis divides it; otherwise compute is replicated across the model
+axis.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.device import resolve_device
 
-__all__ = ["ParamDef", "pad_vocab", "block_defs", "model_layout",
-           "build_defs", "init_params"]
+__all__ = ["ParamDef", "MeshSizes", "pad_vocab", "block_defs",
+           "model_layout", "build_defs", "init_params", "param_pspecs",
+           "fsdp_dims", "shard_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSizes:
+    data: int = 1
+    model: int = 1
+
+    def tp(self, n: int) -> int:
+        return self.model if (self.model > 1 and n % self.model == 0) else 1
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    shape: tuple[int, ...]  # per-layer (unstacked) shape
-    init: str = "normal"    # normal | zeros | ones | lambda
+    shape: tuple[int, ...]          # per-layer (unstacked) global shape
+    fsdp_dim: Optional[int] = None  # dim sharded over "data"
+    tp_dim: Optional[int] = None    # dim sharded over "model"
+    init: str = "normal"            # normal | zeros | ones | lambda
     scale: float = 0.02
 
 
@@ -39,97 +62,113 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
     return -(-v // multiple) * multiple
 
 
-def _attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
+def _attn_defs(cfg: ModelConfig, ms: MeshSizes, cross: bool = False
+               ) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    split = ms.tp(H) > 1
     pre = "x" if cross else ""
     return {
-        f"{pre}wq": ParamDef((d, H * hd), scale=d ** -0.5),
-        f"{pre}wk": ParamDef((d, KV * hd), scale=d ** -0.5),
-        f"{pre}wv": ParamDef((d, KV * hd), scale=d ** -0.5),
-        f"{pre}wo": ParamDef((H * hd, d), scale=(H * hd) ** -0.5),
+        f"{pre}wq": ParamDef((d, H * hd), 0, 1 if split else None,
+                             scale=d ** -0.5),
+        f"{pre}wk": ParamDef((d, KV * hd), 0, scale=d ** -0.5),
+        f"{pre}wv": ParamDef((d, KV * hd), 0, scale=d ** -0.5),
+        f"{pre}wo": ParamDef((H * hd, d), 1, 0 if split else None,
+                             scale=(H * hd) ** -0.5),
         f"{pre}norm": ParamDef((d,), init="zeros"),
     }
 
 
-def _mlp_defs(cfg: ModelConfig) -> dict:
+def _mlp_defs(cfg: ModelConfig, ms: MeshSizes) -> dict:
     d, f = cfg.d_model, cfg.d_ff
+    split = ms.tp(f) > 1
+    tpd = 1 if split else None
     if cfg.family == "audio":  # whisper: a gelu MLP with biases
         return {
-            "w1": ParamDef((d, f), scale=d ** -0.5),
-            "b1": ParamDef((f,), init="zeros"),
-            "w2": ParamDef((f, d), scale=f ** -0.5),
+            "w1": ParamDef((d, f), 0, tpd, scale=d ** -0.5),
+            "b1": ParamDef((f,), None, 0 if split else None, init="zeros"),
+            "w2": ParamDef((f, d), 1, 0 if split else None, scale=f ** -0.5),
             "b2": ParamDef((d,), init="zeros"),
             "norm2": ParamDef((d,), init="zeros"),
         }
     if cfg.moe is not None:
         E = cfg.moe.n_experts
         return {
-            "w_router": ParamDef((d, E), scale=d ** -0.5),
-            "w_gate": ParamDef((E, d, f), scale=d ** -0.5),
-            "w_up": ParamDef((E, d, f), scale=d ** -0.5),
-            "w_down": ParamDef((E, f, d), scale=f ** -0.5),
+            "w_router": ParamDef((d, E), 0, scale=d ** -0.5),
+            "w_gate": ParamDef((E, d, f), 1, 2 if split else None,
+                               scale=d ** -0.5),
+            "w_up": ParamDef((E, d, f), 1, 2 if split else None,
+                             scale=d ** -0.5),
+            "w_down": ParamDef((E, f, d), 2, 1 if split else None,
+                               scale=f ** -0.5),
             "norm2": ParamDef((d,), init="zeros"),
         }
     return {
-        "w_gate": ParamDef((d, f), scale=d ** -0.5),
-        "w_up": ParamDef((d, f), scale=d ** -0.5),
-        "w_down": ParamDef((f, d), scale=f ** -0.5),
+        "w_gate": ParamDef((d, f), 0, tpd, scale=d ** -0.5),
+        "w_up": ParamDef((d, f), 0, tpd, scale=d ** -0.5),
+        "w_down": ParamDef((f, d), 1, 0 if split else None, scale=f ** -0.5),
         "norm2": ParamDef((d,), init="zeros"),
     }
 
 
-def _rglru_defs(cfg: ModelConfig) -> dict:
+def _rglru_defs(cfg: ModelConfig, ms: MeshSizes) -> dict:
     d = cfg.d_model
     w = d  # lru width = d_model
+    split = ms.tp(w) > 1
+    tpd = 1 if split else None
+    vec = 0 if split else None
     return {
-        "w1": ParamDef((d, w), scale=d ** -0.5),
-        "w2": ParamDef((d, w), scale=d ** -0.5),
-        "w_out": ParamDef((w, d), scale=w ** -0.5),
-        "conv": ParamDef((4, w), scale=0.1),
-        "w_a": ParamDef((w,), scale=0.5),
-        "b_a": ParamDef((w,), init="zeros"),
-        "w_x": ParamDef((w,), scale=0.5),
-        "b_x": ParamDef((w,), init="zeros"),
-        "lam": ParamDef((w,), init="lambda"),
+        "w1": ParamDef((d, w), 0, tpd, scale=d ** -0.5),
+        "w2": ParamDef((d, w), 0, tpd, scale=d ** -0.5),
+        "w_out": ParamDef((w, d), 1, vec, scale=w ** -0.5),
+        "conv": ParamDef((4, w), None, tpd, scale=0.1),
+        "w_a": ParamDef((w,), None, vec, scale=0.5),
+        "b_a": ParamDef((w,), None, vec, init="zeros"),
+        "w_x": ParamDef((w,), None, vec, scale=0.5),
+        "b_x": ParamDef((w,), None, vec, init="zeros"),
+        "lam": ParamDef((w,), None, vec, init="lambda"),
         "norm": ParamDef((d,), init="zeros"),
     }
 
 
-def _ssd_defs(cfg: ModelConfig) -> dict:
+def _ssd_defs(cfg: ModelConfig, ms: MeshSizes) -> dict:
     d = cfg.d_model
     s = cfg.ssm or SSMConfig()
     di = s.expand * d
     H = di // s.head_dim
     N = s.state_dim
+    split = ms.tp(di) > 1 and ms.tp(di) == ms.tp(H)  # heads, width together
+    tpd = 1 if split else None
+    vec = 0 if split else None
     return {
-        "w_z": ParamDef((d, di), scale=d ** -0.5),
-        "w_x": ParamDef((d, di), scale=d ** -0.5),
-        "w_bc": ParamDef((d, 2 * N), scale=d ** -0.5),
-        "w_dt": ParamDef((d, H), scale=d ** -0.5),
-        "conv_x": ParamDef((s.conv_width, di), scale=0.1),
+        "w_z": ParamDef((d, di), 0, tpd, scale=d ** -0.5),
+        "w_x": ParamDef((d, di), 0, tpd, scale=d ** -0.5),
+        "w_bc": ParamDef((d, 2 * N), 0, scale=d ** -0.5),
+        "w_dt": ParamDef((d, H), 0, tpd, scale=d ** -0.5),
+        "conv_x": ParamDef((s.conv_width, di), None, tpd, scale=0.1),
         "conv_b": ParamDef((s.conv_width, N), scale=0.1),
         "conv_c": ParamDef((s.conv_width, N), scale=0.1),
-        "A_log": ParamDef((H,), init="ones"),
-        "dt_bias": ParamDef((H,), init="zeros"),
-        "D": ParamDef((H,), init="ones"),
-        "norm_g": ParamDef((di,), init="zeros"),
-        "w_out": ParamDef((di, d), scale=di ** -0.5),
+        "A_log": ParamDef((H,), None, vec, init="ones"),
+        "dt_bias": ParamDef((H,), None, vec, init="zeros"),
+        "D": ParamDef((H,), None, vec, init="ones"),
+        "norm_g": ParamDef((di,), None, vec, init="zeros"),
+        "w_out": ParamDef((di, d), 1, vec, scale=di ** -0.5),
         "norm": ParamDef((d,), init="zeros"),
     }
 
 
-def block_defs(kind: str, cfg: ModelConfig, *, decoder: bool = False
-               ) -> dict:
+def block_defs(kind: str, cfg: ModelConfig, ms: MeshSizes = MeshSizes(),
+               *, decoder: bool = False) -> dict:
     """Parameter defs for one block of the given kind: attention (with
     the cross-attention of an encoder-decoder's ``decoder``) and RG-LRU
     blocks with their FFN, SSD blocks without one."""
     if kind.startswith("attn"):
-        cross = _attn_defs(cfg, cross=True) if decoder and cfg.enc_dec else {}
-        return {**_attn_defs(cfg), **cross, **_mlp_defs(cfg)}
+        cross = (_attn_defs(cfg, ms, cross=True)
+                 if decoder and cfg.enc_dec else {})
+        return {**_attn_defs(cfg, ms), **cross, **_mlp_defs(cfg, ms)}
     if kind == "rglru":
-        return {**_rglru_defs(cfg), **_mlp_defs(cfg)}
+        return {**_rglru_defs(cfg, ms), **_mlp_defs(cfg, ms)}
     if kind == "ssd":
-        return _ssd_defs(cfg)
+        return _ssd_defs(cfg, ms)
     raise ValueError(kind)
 
 
@@ -141,23 +180,103 @@ def model_layout(cfg: ModelConfig) -> tuple[int, tuple[str, ...]]:
     return reps, tail
 
 
-def build_defs(cfg: ModelConfig) -> dict:
+def build_defs(cfg: ModelConfig, ms: MeshSizes = MeshSizes()) -> dict:
     """Full nested ParamDef tree (mirrors the params tree structure)."""
     _, tail = model_layout(cfg)
     vp = pad_vocab(cfg.vocab)
     tree: dict = {
-        "embed": ParamDef((vp, cfg.d_model)),
+        "embed": ParamDef((vp, cfg.d_model), 1, 0),
         "final_norm": ParamDef((cfg.d_model,), init="zeros"),
-        "blocks": [block_defs(k, cfg, decoder=True)
+        "blocks": [block_defs(k, cfg, ms, decoder=True)
                    for k in cfg.block_pattern],
-        "tail": [block_defs(k, cfg, decoder=True) for k in tail],
+        "tail": [block_defs(k, cfg, ms, decoder=True) for k in tail],
     }
     if not cfg.tie_embeddings:
-        tree["unembed"] = ParamDef((vp, cfg.d_model))
+        tree["unembed"] = ParamDef((vp, cfg.d_model), 1, 0)
     if cfg.enc_dec:
-        tree["enc_blocks"] = [block_defs("attn_full", cfg)]
+        tree["enc_blocks"] = [block_defs("attn_full", cfg, ms)]
         tree["enc_final_norm"] = ParamDef((cfg.d_model,), init="zeros")
-    return tree
+    return _apply_fsdp_toggle(tree, cfg)
+
+
+def _apply_fsdp_toggle(defs, cfg: ModelConfig):
+    """Drop FSDP sharding when ``cfg.fsdp`` is False (parameters
+    replicated over "data")."""
+    if cfg.fsdp:
+        return defs
+
+    def strip(d):
+        if isinstance(d, ParamDef):
+            return dataclasses.replace(d, fsdp_dim=None)
+        if isinstance(d, dict):
+            return {k: strip(v) for k, v in d.items()}
+        return [strip(v) for v in d]
+
+    return strip(defs)
+
+
+def _map_defs(defs: dict, fn):
+    """``fn(def, stacked)`` over the def tree, in the params tree's
+    structure (``stacked``: the leaf has a leading layer dim)."""
+    out = {}
+    for name, sub in defs.items():
+        if name in ("blocks", "enc_blocks", "tail"):
+            out[name] = [{k: fn(d, name != "tail") for k, d in blk.items()}
+                         for blk in sub]
+        else:
+            out[name] = fn(sub, False)
+    return out
+
+
+def param_pspecs(cfg: ModelConfig, ms: MeshSizes = MeshSizes(), *,
+                 data_axis: Optional[str] = "data",
+                 model_axis: Optional[str] = "model") -> dict:
+    """Each leaf's partition: a tuple of the axis name (or None) each dim
+    is sharded over, stacked leaves with a leading None (the reference's
+    ``PartitionSpec`` as a tuple)."""
+    def fn(d: ParamDef, stacked: bool):
+        axes: list = [None] * len(d.shape)
+        if d.fsdp_dim is not None and data_axis and ms.data > 1:
+            axes[d.fsdp_dim] = data_axis
+        if d.tp_dim is not None and model_axis and ms.model > 1:
+            axes[d.tp_dim] = model_axis
+        return tuple([None] + axes if stacked else axes)
+
+    return _map_defs(build_defs(cfg, ms), fn)
+
+
+def fsdp_dims(cfg: ModelConfig, ms: MeshSizes = MeshSizes()) -> dict:
+    """Each leaf's FSDP dim in the per-layer view, or None: the dim the
+    forward pass all-gathers over "data" before it uses a layer."""
+    return _map_defs(build_defs(cfg, ms), lambda d, stacked: d.fsdp_dim)
+
+
+def shard_params(params: dict, cfg: ModelConfig, ms: MeshSizes,
+                 coords: dict, *, data_axis: Optional[str] = "data",
+                 model_axis: Optional[str] = "model") -> dict:
+    """One rank's block of a full parameter tree: each leaf sliced along
+    its sharded dims (:func:`param_pspecs`) at the rank's ``coords``
+    (``{axis name: index}``), as contiguous tensors. A leaf not sharded
+    comes back as it is."""
+    specs = param_pspecs(cfg, ms, data_axis=data_axis,
+                         model_axis=model_axis)
+    sizes = {data_axis: ms.data, model_axis: ms.model}
+
+    def one(w, spec):
+        for dim, name in enumerate(spec):
+            if name is not None:
+                n = w.shape[dim] // sizes[name]
+                w = w.narrow(dim, coords[name] * n, n)
+        return w.contiguous()
+
+    out = {}
+    for name, sub in params.items():
+        if isinstance(sub, list):
+            out[name] = [{k: one(w, specs[name][i][k]) for k, w in blk.items()}
+                         for i, blk in enumerate(sub)]
+        else:
+            out[name] = one(sub, specs[name])
+    return out
 
 
 def _draw(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:

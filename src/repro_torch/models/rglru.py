@@ -12,14 +12,19 @@ the reference computes it outside any Pallas kernel. Numerics as the reference's
 its asymmetry: the state a prefill hands to decode is the last output in
 the model's dtype, cast back to f32, while decode carries its state in
 f32 from step to step.
+
+Under a model axis the recurrence width is this rank's block (the
+recurrence is elementwise over it) and the output projection a TP
+partial sum, as the reference's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.axes import SINGLE, Axes
 from repro_torch.kernels import rglru_scan as kr
-from repro_torch.models.layers import causal_conv1d, dense
+from repro_torch.models.layers import causal_conv1d, dense, tp_out
 
 __all__ = ["rglru_scan", "rglru_step", "recurrent_block",
            "recurrent_block_step"]
@@ -57,8 +62,14 @@ def _handoff(h: torch.Tensor) -> torch.Tensor:
     return h[:, -1].to(_F32)
 
 
+def _out(merged: torch.Tensor, w_out: torch.Tensor, ax: Axes):
+    if ax.model is None:
+        return dense(merged, w_out)
+    return tp_out(merged, w_out, ax)
+
+
 def recurrent_block(x: torch.Tensor, p: dict, *, capture: bool = False,
-                    scan=None):
+                    scan=None, ax: Axes = SINGLE):
     """The Griffin recurrent block over a sequence, x ``[B, S, d]``:
     ``(out, state)``; with ``capture``, ``state`` is the decode
     continuation ``{"h": [B, W] f32, "conv": [B, K-1, W]}``, else None.
@@ -71,14 +82,15 @@ def recurrent_block(x: torch.Tensor, p: dict, *, capture: bool = False,
     h = (scan or kr.rglru_scan)(u, p["w_a"], p["b_a"], p["w_x"], p["b_x"],
                                 p["lam"])
     merged = (y1.to(_F32) * h.to(_F32)).to(x.dtype)
-    out = dense(merged, p["w_out"])
+    out = _out(merged, p["w_out"], ax)
     if not capture:
         return out, None
     K = p["conv"].shape[0]
     return out, {"h": _handoff(h), "conv": u_pre[:, -(K - 1):]}
 
 
-def recurrent_block_step(x: torch.Tensor, state: dict, p: dict):
+def recurrent_block_step(x: torch.Tensor, state: dict, p: dict,
+                         ax: Axes = SINGLE):
     """One decode step, x ``[B, d]``, from ``state``
     (:func:`recurrent_block`'s layout): ``(out [B, d], new state)``."""
     y1 = F.gelu(dense(x, p["w1"]).to(_F32), approximate="tanh").to(x.dtype)
@@ -89,4 +101,4 @@ def recurrent_block_step(x: torch.Tensor, state: dict, p: dict):
     h_out, h_new = rglru_step(u, state["h"], p["w_a"], p["b_a"], p["w_x"],
                               p["b_x"], p["lam"])
     merged = (y1.to(_F32) * h_out.to(_F32)).to(x.dtype)
-    return dense(merged, p["w_out"]), {"h": h_new, "conv": window[:, 1:]}
+    return _out(merged, p["w_out"], ax), {"h": h_new, "conv": window[:, 1:]}

@@ -11,6 +11,11 @@ kernel. Numerics as the reference's ``repro/models/ssd.py``: projections
 in the model's dtype with f32 accumulation, the scan and the gating in
 f32, the prefill's causal convolution rounded to the model's dtype, the
 decode step's kept in f32.
+
+Under a model axis the heads and the inner width are this rank's block
+(``B`` / ``C`` replicated), the grouped norm's sum of squares is summed
+over the axis, and the output projection is a TP partial sum, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -18,9 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed.axes import SINGLE, Axes
 from repro_torch.kernels import ssd_scan as ks
 from repro_torch.kernels.ref import softplus
-from repro_torch.models.layers import causal_conv1d, dense, rms_norm
+from repro_torch.models.layers import (causal_conv1d, dense, rms_norm,
+                                       rms_norm_tp, tp_out)
 
 __all__ = ["ssd_chunked", "ssd_block", "ssd_block_step"]
 
@@ -90,18 +97,21 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int):
     return y[:, :S0].to(x.dtype), h
 
 
-def _gate_out(y, xh, z, p, x_dtype):
+def _gate_out(y, xh, z, p, x_dtype, ax: Axes, full_width: int):
     """The skip term, the SiLU gate, the grouped norm and the output
-    projection, shared by both forms. y/xh f32 ``[..., H, P]``."""
+    projection, shared by both forms. y/xh f32 ``[..., H, P]``;
+    ``full_width`` is the unsharded inner width."""
     y = y + p["D"].to(_F32)[:, None] * xh
     y = y.reshape(y.shape[:-2] + (-1,))
     y = (y * F.silu(z.to(_F32))).to(x_dtype)
-    y = rms_norm(y, p["norm_g"], 1e-6)
-    return dense(y, p["w_out"])
+    if ax.model is None:
+        return dense(rms_norm(y, p["norm_g"], 1e-6), p["w_out"])
+    y = rms_norm_tp(y, p["norm_g"], 1e-6, ax, full_width)
+    return tp_out(y, p["w_out"], ax)
 
 
 def ssd_block(x: torch.Tensor, p: dict, cfg: SSMConfig, *,
-              capture: bool = False, scan=None):
+              capture: bool = False, scan=None, ax: Axes = SINGLE):
     """The Mamba-2 block over a sequence, x ``[B, S, d]``: ``(out,
     state)``; with ``capture``, ``state`` is the decode continuation
     ``{"h": [B, H, N, P] f32, "conv": [B, K-1, di + 2N]}``, else None.
@@ -122,7 +132,8 @@ def ssd_block(x: torch.Tensor, p: dict, cfg: SSMConfig, *,
     dt = softplus(dt_raw.to(_F32) + p["dt_bias"].to(_F32))
     A = -torch.exp(p["A_log"].to(_F32))
     y, h_last = (scan or ks.ssd_scan)(xh, dt, A, Bm, Cm, chunk=cfg.chunk)
-    out = _gate_out(y.to(_F32), xh.to(_F32), z, p, x.dtype)
+    out = _gate_out(y.to(_F32), xh.to(_F32), z, p, x.dtype, ax,
+                    cfg.expand * x.shape[-1])
     if not capture:
         return out, None
     K = p["conv_x"].shape[0]
@@ -130,7 +141,8 @@ def ssd_block(x: torch.Tensor, p: dict, cfg: SSMConfig, *,
     return out, {"h": h_last, "conv": feats[:, -(K - 1):]}
 
 
-def ssd_block_step(x: torch.Tensor, state: dict, p: dict, cfg: SSMConfig):
+def ssd_block_step(x: torch.Tensor, state: dict, p: dict, cfg: SSMConfig,
+                   ax: Axes = SINGLE):
     """One decode step, x ``[B, d]``, from ``state`` (:func:`ssd_block`'s
     layout): ``(out [B, d], new state)``."""
     Bsz, _ = x.shape
@@ -153,5 +165,5 @@ def ssd_block_step(x: torch.Tensor, state: dict, p: dict, cfg: SSMConfig):
     dbx = torch.einsum("bn,bhp->bhnp", Bm, dt[..., None] * xh)
     h = state["h"] * decay[..., None, None] + dbx
     y = torch.einsum("bn,bhnp->bhp", Cm, h)
-    out = _gate_out(y, xh, z, p, x.dtype)
+    out = _gate_out(y, xh, z, p, x.dtype, ax, cfg.expand * x.shape[-1])
     return out, {"h": h, "conv": window[:, 1:]}

@@ -28,6 +28,15 @@ under ``torch.utils.checkpoint`` when the configuration asks for remat
 (the reference's ``jax.checkpoint`` of each superblock), with the MoE's
 auxiliary loss, whisper's stub frames and a VLM's patch embeddings from
 the batch.
+
+The prefill's blocks run under a mesh as the reference's do (an
+:class:`~repro_torch.distributed.axes.Axes` ``ax``, :data:`SINGLE` by
+default): :func:`layers` all-gathers each layer's FSDP-sharded weights
+over the data axis before the layer runs (ZeRO-3); attention takes this
+rank's query heads over the KV heads their groups need
+(:func:`_local_kv_slice`) and sums ``wo``'s partial products over the
+model axis; the FFNs and the recurrent blocks take theirs likewise.
+Training runs on one card.
 """
 from __future__ import annotations
 
@@ -37,13 +46,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.distributed.axes import SINGLE, Axes
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import moe
 from repro_torch.models import params as pm
 from repro_torch.models.attention import blockwise_attention
 from repro_torch.models.layers import (apply_rope, dense, embed, mlp_gelu,
                                        mlp_swiglu, rms_norm, rope_tables,
-                                       sinusoidal_positions, unembed_loss)
+                                       sinusoidal_positions, tp_out,
+                                       unembed_loss)
 from repro_torch.models.rglru import recurrent_block, rglru_scan
 from repro_torch.models.ssd import ssd_block, ssd_chunked
 
@@ -68,11 +79,23 @@ class Layer(NamedTuple):
     rep: Optional[int]      # repeat of the pattern; None in the tail
 
 
-def layers(params: dict, cfg: ModelConfig) -> Iterator[Layer]:
+def _fetch(ax: Axes, p: dict, fdims: Optional[dict]) -> dict:
+    """A layer's weights with its FSDP-sharded leaves all-gathered over
+    the data axis (the identity without one)."""
+    if ax.data is None or fdims is None:
+        return p
+    return {k: ax.fsdp_gather(w, fdims[k]) for k, w in p.items()}
+
+
+def layers(params: dict, cfg: ModelConfig, ax: Axes = SINGLE,
+           fdims: Optional[dict] = None) -> Iterator[Layer]:
     """Every layer in order: the stacked superblocks, then the tail. A
     stacked leaf is unbound once, so that under autograd its gradient is
     one stack of the layers' gradients (indexing it layer by layer would
-    add a zero-filled gradient of the whole stack for every layer)."""
+    add a zero-filled gradient of the whole stack for every layer). Under
+    a data axis each layer's FSDP-sharded weights (``fdims``,
+    :func:`~repro_torch.models.params.fsdp_dims`) are gathered as the
+    layer comes up."""
     attn_pp = tuple(i for i, k in enumerate(cfg.block_pattern)
                     if k.startswith("attn"))
     reps, tail = pm.model_layout(cfg)
@@ -83,12 +106,14 @@ def layers(params: dict, cfg: ModelConfig) -> Iterator[Layer]:
             p = {k: w[r] for k, w in unbound[i].items()}
             li = (r * len(attn_pp) + attn_pp.index(i)
                   if kind.startswith("attn") else None)
-            yield Layer(kind, p, li, i, r)
+            yield Layer(kind, _fetch(ax, p, fdims and fdims["blocks"][i]),
+                        li, i, r)
     for i, kind in enumerate(tail):
         li = (reps * len(attn_pp) + sum(1 for k in tail[:i]
                                         if k.startswith("attn"))
               if kind.startswith("attn") else None)
-        yield Layer(kind, params["tail"][i], li, i, None)
+        yield Layer(kind, _fetch(ax, params["tail"][i],
+                                 fdims and fdims["tail"][i]), li, i, None)
 
 
 def _flash(q, k, v, **kw):
@@ -100,25 +125,50 @@ def _flash(q, k, v, **kw):
 
 
 def _qkv(h, p, cfg: ModelConfig):
-    """The projections ``q [B, S, H, hd]`` and ``k, v [B, S, KV, hd]``."""
+    """The projections ``q [B, S, H_local, hd]`` (this rank's query heads)
+    and ``k, v [B, S, KV, hd]`` (every KV head)."""
     B, S, _ = h.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return (dense(h, p["wq"]).reshape(B, S, H, hd),
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    return (dense(h, p["wq"]).reshape(B, S, -1, hd),
             dense(h, p["wk"]).reshape(B, S, KV, hd),
             dense(h, p["wv"]).reshape(B, S, KV, hd))
 
 
+def _local_kv_slice(k, v, cfg: ModelConfig, ax: Axes):
+    """The KV heads ``[..., KV, hd]`` (replicated over the model axis)
+    that this rank's query heads attend to: with TP over the heads, the
+    groups of its ``H / tp`` heads."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    tp_h = ax.tp_degree(H)
+    if tp_h == 1:
+        return k, v
+    h_local = H // tp_h
+    count = max(1, (h_local * KV) // H)
+    start = (ax.index(ax.model) * h_local * KV) // H
+    return k[:, :, start:start + count], v[:, :, start:start + count]
+
+
+def _attn_out(o, w, cfg: ModelConfig, ax: Axes):
+    """Attention's output projection of ``o [B, S, H_local, hd]``: a TP
+    partial sum over the model axis where the heads are split."""
+    B, S = o.shape[:2]
+    if ax.tp_degree(cfg.n_heads) > 1:
+        return tp_out(o.reshape(B, S, -1), w, ax)
+    return dense(o.reshape(B, S, -1), w)
+
+
 def _self_attention(x, p, cfg: ModelConfig, rope, *, kind: str,
-                    attend: Callable, prefix_len: int = 0):
-    B, S, _ = x.shape
+                    attend: Callable, prefix_len: int = 0,
+                    ax: Axes = SINGLE):
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     q, k, v = _qkv(h, p, cfg)
     if cfg.family != "audio":  # whisper's positions are absolute
         q = apply_rope(q, rope)
         k = apply_rope(k, rope)
     window = cfg.window if kind in ("attn_swa", "attn_local") else None
-    o = attend(q, k, v, causal=True, window=window, prefix_len=prefix_len)
-    return dense(o.reshape(B, S, -1), p["wo"]), (k, v)
+    o = attend(q, *_local_kv_slice(k, v, cfg, ax), causal=True,
+               window=window, prefix_len=prefix_len)
+    return _attn_out(o, p["wo"], cfg, ax), (k, v)
 
 
 def cross_kv(enc_out, p, cfg: ModelConfig):
@@ -130,17 +180,19 @@ def cross_kv(enc_out, p, cfg: ModelConfig):
             dense(enc_out, p["xwv"]).reshape(shape))
 
 
-def _cross_attention(x, enc_out, p, cfg: ModelConfig, attend: Callable):
+def _cross_attention(x, enc_out, p, cfg: ModelConfig, attend: Callable,
+                     ax: Axes = SINGLE):
     """Whisper's cross-attention: full attention of the decoder's queries
     over the encoder's output."""
     B, S, _ = x.shape
     h = rms_norm(x, p["xnorm"], cfg.norm_eps)
-    q = dense(h, p["xwq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    o = attend(q, *cross_kv(enc_out, p, cfg), causal=False)
-    return dense(o.reshape(B, S, -1), p["xwo"])
+    q = dense(h, p["xwq"]).reshape(B, S, -1, cfg.head_dim)
+    k, v = _local_kv_slice(*cross_kv(enc_out, p, cfg), cfg, ax)
+    o = attend(q, k, v, causal=False)
+    return _attn_out(o, p["xwo"], cfg, ax)
 
 
-def _ffn(x, p, cfg: ModelConfig):
+def _ffn(x, p, cfg: ModelConfig, ax: Axes = SINGLE):
     """The pre-norm FFN of an attention or RG-LRU block over ``x [..., d]``:
     the MoE, whisper's gelu MLP, or SwiGLU. Returns ``(delta, aux_loss,
     dropped)``, the last two f32 scalars for the MoE and None otherwise
@@ -148,22 +200,24 @@ def _ffn(x, p, cfg: ModelConfig):
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if cfg.moe is not None:
         out = moe.moe_swiglu(h.reshape(-1, h.shape[-1]), p["w_router"],
-                             p["w_gate"], p["w_up"], p["w_down"], cfg.moe)
+                             p["w_gate"], p["w_up"], p["w_down"], cfg.moe,
+                             ax=ax)
         return out.y.reshape(h.shape), out.aux_loss, out.dropped
     if cfg.family == "audio":
-        return mlp_gelu(h, p["w1"], p["b1"], p["w2"], p["b2"]), None, None
-    return mlp_swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None, None
+        return (mlp_gelu(h, p["w1"], p["b1"], p["w2"], p["b2"], ax), None,
+                None)
+    return mlp_swiglu(h, p["w_gate"], p["w_up"], p["w_down"], ax), None, None
 
 
-def ffn(x, p, cfg: ModelConfig):
+def ffn(x, p, cfg: ModelConfig, ax: Axes = SINGLE):
     """The FFN's ``delta`` alone (the decode step's)."""
-    return _ffn(x, p, cfg)[0]
+    return _ffn(x, p, cfg, ax)[0]
 
 
 def _block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
            attend: Callable = _flash, ssd_scan: Optional[Callable] = None,
            rglru_scan: Optional[Callable] = None, capture: bool = False,
-           prefix_len: int = 0, enc_out=None):
+           prefix_len: int = 0, enc_out=None, ax: Axes = SINGLE):
     """One block over a sequence, as the reference's ``apply_block``
     (``rope``: the positions' :func:`~repro_torch.models.layers.
     rope_tables`, unused for whisper; ``prefix_len``: the bidirectional
@@ -177,32 +231,34 @@ def _block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
     its decode state with ``capture`` (else None)."""
     if kind.startswith("attn"):
         delta, kv = _self_attention(x, p, cfg, rope, kind=kind,
-                                    attend=attend, prefix_len=prefix_len)
+                                    attend=attend, prefix_len=prefix_len,
+                                    ax=ax)
         x = x + delta
         if enc_out is not None and "xwq" in p:
-            x = x + _cross_attention(x, enc_out, p, cfg, attend)
-        delta, aux, dropped = _ffn(x, p, cfg)
+            x = x + _cross_attention(x, enc_out, p, cfg, attend, ax)
+        delta, aux, dropped = _ffn(x, p, cfg, ax)
         return x + delta, aux, dropped, kv
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     if kind == "rglru":
         delta, state = recurrent_block(h, p, capture=capture,
-                                       scan=rglru_scan)
+                                       scan=rglru_scan, ax=ax)
         x = x + delta
-        delta, aux, dropped = _ffn(x, p, cfg)
+        delta, aux, dropped = _ffn(x, p, cfg, ax)
         return x + delta, aux, dropped, state
     if kind == "ssd":
         delta, state = ssd_block(h, p, cfg.ssm or SSMConfig(),
-                                 capture=capture, scan=ssd_scan)
+                                 capture=capture, scan=ssd_scan, ax=ax)
         return x + delta, None, None, state
     raise ValueError(kind)
 
 
 def apply_block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
-                capture: bool = False, prefix_len: int = 0, enc_out=None):
+                capture: bool = False, prefix_len: int = 0, enc_out=None,
+                ax: Axes = SINGLE):
     """The prefill's block, through the kernels: ``(x, extras)`` of
     :func:`_block`."""
     x, _, _, extras = _block(kind, x, p, cfg, rope, capture=capture,
-                             prefix_len=prefix_len, enc_out=enc_out)
+                             prefix_len=prefix_len, enc_out=enc_out, ax=ax)
     return x, extras
 
 
@@ -216,7 +272,8 @@ def _remat_block(kind: str, x, p: dict, cfg: ModelConfig, rope,
 
 
 def encode_frames(frames, params: dict, cfg: ModelConfig, *,
-                  attend: Callable = _flash):
+                  attend: Callable = _flash, ax: Axes = SINGLE,
+                  fdims: Optional[dict] = None):
     """Whisper's encoder over stub frame embeddings ``[B, T_enc, d]``:
     sinusoidal positions, then each encoder layer's pre-norm full
     self-attention and gelu MLP, then the final norm."""
@@ -225,13 +282,13 @@ def encode_frames(frames, params: dict, cfg: ModelConfig, *,
     x = frames + sinusoidal_positions(pos, cfg.d_model)[None].to(frames.dtype)
     enc = params["enc_blocks"][0]
     for i in range(cfg.n_enc_layers):
-        p = {k: w[i] for k, w in enc.items()}
-        B, S, _ = x.shape
+        p = _fetch(ax, {k: w[i] for k, w in enc.items()},
+                   fdims and fdims["enc_blocks"][0])
         h = rms_norm(x, p["norm"], cfg.norm_eps)
         q, k, v = _qkv(h, p, cfg)
-        o = attend(q, k, v, causal=False)
-        x = x + dense(o.reshape(B, S, -1), p["wo"])
-        x = x + ffn(x, p, cfg)
+        o = attend(q, *_local_kv_slice(k, v, cfg, ax), causal=False)
+        x = x + _attn_out(o, p["wo"], cfg, ax)
+        x = x + ffn(x, p, cfg, ax)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 

@@ -41,45 +41,68 @@ prefix-LM, and the pools, positions and lengths span prefix and text.
 An MoE model's FFN is :func:`repro_torch.models.moe.moe_swiglu` at
 prefill and decode.
 
-Scope: one card (``page_axes=()``), KV in the parameters' dtype or int8;
-page sharding raises ``NotImplementedError`` naming its ROADMAP item.
+Page shards (``ServeConfig.page_axes``). Under a mesh of ranks
+(:mod:`repro_torch.launch.spmd`) each sequence's pages are spread over the
+ranks of the page axes by ``mapping`` (:mod:`repro_torch.core.mapping`);
+each rank keeps tier 1 and tier 2 for the pages it owns and runs its own
+learner, and the batch is split over the other batch axes. A decode step
+gathers the full query over the model axis, runs the two tier launches
+over the rank's owned pages only, merges its two tiers, and combines the
+ranks' partials (:func:`~repro_torch.models.attention.combine_shards`);
+then it keeps its own heads and sums ``wo``'s partial products over the
+model axis. The weights are TP-sharded over the model axis and
+FSDP-sharded over the data axis, gathered a layer at a time. The port's
+default is ``page_axes=()`` (one card; every one-card caller relies on
+it), where the reference's is ``("model",)``; with an
+:class:`~repro_torch.distributed.axes.Axes` of no axes both mean one page
+shard.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.core import online_learning as ol
+from repro_torch.core.mapping import page_to_shard
 from repro_torch.device import resolve_device, to_device
+from repro_torch.distributed.axes import SINGLE, Axes
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import params as pm
 from repro_torch.models.attention import (Partial, attention_partial,
-                                          combine_partials)
+                                          combine_partials, combine_shards,
+                                          merge_partials)
 from repro_torch.models.layers import (apply_rope, dense, embed, rms_norm,
                                        rope_tables, sinusoidal_positions,
-                                       unembed_greedy)
+                                       tp_out, unembed_greedy)
 from repro_torch.models.rglru import recurrent_block_step
 from repro_torch.models.ssd import ssd_block_step
-from repro_torch.models.transformer import (apply_block, cross_kv,
-                                            encode_frames, ffn, layers,
-                                            positions_in)
+from repro_torch.models.transformer import (_local_kv_slice, apply_block,
+                                            cross_kv, encode_frames, ffn,
+                                            layers, positions_in)
 from repro_torch.serving import kvpool as kvp
 from repro_torch.serving.kvpool import KVSpec, PagedKV
 
 __all__ = ["ServeConfig", "DecodeState", "make_kv_spec", "init_decode_state",
-           "make_decode_step", "make_prefill_step"]
+           "make_decode_step", "make_prefill_step", "page_shard_index",
+           "page_shards", "check_supported"]
+
+_PAGE_AXES = ("pod", "data", "model")
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     max_seq: int
     batch_local: int
-    page_axes: tuple[str, ...] = ()  # one card: pages are not sharded
-    hbm_fraction: float = 0.5   # tier-1 capacity as fraction of pages
+    # Mesh axes that shard the pages; () = one page shard (the reference's
+    # default is ("model",); the port keeps () for its one-card callers).
+    page_axes: tuple[str, ...] = ()
+    mapping: str = "block_cyclic"
+    hbm_fraction: float = 0.5   # tier-1 capacity as fraction of owned pages
     n_promote: int = 2
     kv_dtype: str = "auto"      # "auto" (= param dtype) or "int8"
 
@@ -96,28 +119,63 @@ class DecodeState(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig, sc: ServeConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not serve."""
-    if sc.page_axes:
-        raise NotImplementedError(
-            "page sharding over several cards is not ported yet (ROADMAP "
-            "module item 4); use page_axes=()")
+    """Raise ``ValueError`` for page axes that are not mesh axes. (Every
+    configuration serves, on one card or sharded; sharded training is what
+    waits, :func:`repro_torch.launch.spmd.build_train_step`.)"""
+    bad = [a for a in sc.page_axes if a not in _PAGE_AXES]
+    if bad:
+        raise ValueError(f"page_axes {bad} are not among {_PAGE_AXES}")
+
+
+def page_shard_index(ax: Axes, page_axes: tuple[str, ...]) -> int:
+    """This rank's flat index within the page-shard group (``page_axes``
+    in the given order, each resolved through ``ax``; 0 without a mesh)."""
+    me = 0
+    for name in page_axes:
+        actual = getattr(ax, name)
+        me = me * ax.size(actual) + ax.index(actual)
+    return me
+
+
+def page_shards(ax: Axes, page_axes: tuple[str, ...]) -> int:
+    """The page-shard group's size: the product of the page axes'."""
+    n = 1
+    for name in page_axes:
+        n *= ax.size(getattr(ax, name))
+    return n
+
+
+def _page_names(ax: Axes, page_axes: tuple[str, ...]) -> tuple:
+    """The mesh axes the decode step combines its partials over."""
+    return tuple(getattr(ax, n) for n in _PAGE_AXES
+                 if n in page_axes and getattr(ax, n) is not None)
 
 
 def _needs_kv(cfg: ModelConfig) -> bool:
     return any(k.startswith("attn") for k in cfg.layer_kinds())
 
 
-def make_kv_spec(cfg: ModelConfig, sc: ServeConfig) -> KVSpec:
-    """Static pool geometry for an (arch, serve shape) cell on one card
-    (pages not sharded). Models whose attention is all sliding-window
-    (alone or beside recurrent blocks) read only the pages of the window:
-    ``read_pages`` = ceil(window / page) + 1, as the reference sets it."""
+def make_kv_spec(cfg: ModelConfig, sc: ServeConfig, n_shards: int = 1
+                 ) -> KVSpec:
+    """Static pool geometry for an (arch, serve shape) cell on one page
+    shard of ``n_shards``: tier 1 holds ``hbm_fraction`` of ``owned =
+    ceil(pages / n_shards) + 1`` slots, as the reference sizes it. Tier 2
+    holds ``owned + 1`` slots as the reference's does, or one more than
+    the most pages a shard owns under ``mapping`` where that is more: the
+    reference's count can fall short of an uneven mapping's load, and
+    its scatters then drop pages without a word (ROADMAP faults item
+    (m)). Models whose attention is all sliding-window (alone or beside
+    recurrent blocks) read only the pages of the window: ``read_pages``
+    = ceil(window / page) + 1, as the reference sets it."""
     attn_pp = kvp.n_attn_layers(cfg)
     reps, tail = pm.model_layout(cfg)
     n_attn = reps * len(attn_pp) + sum(1 for k in tail
                                        if k.startswith("attn"))
     n_pages = -(-sc.max_seq // cfg.page_size)
-    owned = sc.batch_local * n_pages + 1
+    total = sc.batch_local * n_pages
+    owned = -(-total // n_shards) + 1
+    load = np.bincount(page_to_shard(np.arange(total), n_shards, total,
+                                     sc.mapping), minlength=n_shards)
     read_pages = window = 0
     if all(k in ("attn_swa", "attn_local", "rglru", "ssd")
            for k in cfg.block_pattern) and attn_pp:
@@ -127,15 +185,16 @@ def make_kv_spec(cfg: ModelConfig, sc: ServeConfig) -> KVSpec:
         b_local=sc.batch_local, n_pages=n_pages, page_size=cfg.page_size,
         n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
         layers_per_slot=max(n_attn, 1),
-        hbm_slots=max(2, int(owned * sc.hbm_fraction)), t2_slots=owned + 1,
+        hbm_slots=max(2, int(owned * sc.hbm_fraction)),
+        t2_slots=max(owned, int(load.max())) + 1,
+        n_shards=n_shards, mapping=sc.mapping,
         read_pages=read_pages, window=window,
         dtype=cfg.param_dtype if sc.kv_dtype == "auto" else sc.kv_dtype)
 
 
 def _rec_state_one(kind: str, cfg: ModelConfig, B: int, device) -> dict:
     """A zero decode state of one recurrent layer; of an attention layer
-    of an encoder-decoder its cross-attention keys and values, else
-    {}."""
+    of an encoder-decoder its cross-attention keys and values, else {}."""
     dt = getattr(torch, cfg.param_dtype)
 
     def z(shape, dtype):
@@ -158,7 +217,7 @@ def _rec_state_one(kind: str, cfg: ModelConfig, B: int, device) -> dict:
 def init_decode_state(cfg: ModelConfig, sc: ServeConfig, seed: int = 0, *,
                       device=None) -> DecodeState:
     """Empty pools and zero recurrent states on ``device`` (``None`` = the
-    card)."""
+    card), on one card (a sharded prefill builds its own state)."""
     check_supported(cfg, sc)
     device = resolve_device(device)
     reps, tail = pm.model_layout(cfg)
@@ -179,23 +238,43 @@ def _layer_state(state: DecodeState, layer) -> dict:
     return {k: v[layer.rep] for k, v in state.rec[layer.pos].items()}
 
 
-def _unembedding(params: dict, cfg: ModelConfig) -> torch.Tensor:
+def _unembedding_key(params: dict, cfg: ModelConfig) -> str:
     tied = cfg.tie_embeddings or "unembed" not in params
-    return params["embed" if tied else "unembed"]
+    return "embed" if tied else "unembed"
+
+
+def _gathered(params: dict, key: str, ax: Axes, fdims) -> torch.Tensor:
+    """A top-level leaf, its FSDP dim gathered over the data axis."""
+    w = params[key]
+    return w if fdims is None else ax.fsdp_gather(w, fdims[key])
+
+
+def _heads_out(o, w, cfg: ModelConfig, ax: Axes):
+    """The output projection of ``o [B, H_local, hd]`` (f32), cast to the
+    weights' dtype first: a TP partial sum where the heads are split."""
+    o = o.to(w.dtype).reshape(o.shape[0], -1)
+    if ax.tp_degree(cfg.n_heads) > 1:
+        return tp_out(o, w, ax)
+    return dense(o, w)
 
 
 def _decode_attention(x, p, cfg: ModelConfig, pools, index, tables, li,
-                      rope, window: int):
-    """One attention block at decode time over both tiers."""
+                      rope, window: int, ax: Axes = SINGLE, names=()):
+    """One attention block at decode time over both tiers of this rank's
+    pages, combined over the page axes ``names``."""
     B, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tp_h = ax.tp_degree(H)
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = dense(h, p["wq"]).reshape(B, H, hd)
+    q = dense(h, p["wq"]).reshape(B, H // tp_h, hd)
     k_new = dense(h, p["wk"]).reshape(B, KV, hd)
     v_new = dense(h, p["wv"]).reshape(B, KV, hd)
     if rope is not None:  # None: whisper's absolute positions
         q = apply_rope(q[:, None], rope)[:, 0]
         k_new = apply_rope(k_new[:, None], rope)[:, 0]
+    if tp_h > 1:  # every page shard attends with every query head
+        q = ax.all_gather(q.reshape(B, -1), ax.model, axis=1).reshape(
+            B, H, hd)
     scales = pools[2:] or (None, None)
     kvp.write_token_kv(pools[0], (k_new, v_new), index, li, scales[0])
     slot1, slot2, live = tables
@@ -204,28 +283,39 @@ def _decode_attention(x, p, cfg: ModelConfig, pools, index, tables, li,
             q, pool[:, li], slot, live, window,
             scale=None if sc is None else sc[:, li]))
         for pool, sc, slot in zip(pools[:2], scales, (slot1, slot2)))
-    o = combine_partials([part1, part2])           # [B, H, hd] f32
-    return dense(o.to(x.dtype).reshape(B, H * hd), p["wo"])
+    if names:
+        o = combine_shards(merge_partials([part1, part2]), ax, names)
+    else:
+        o = combine_partials([part1, part2])       # [B, H, hd] f32
+    if tp_h > 1:  # this rank's heads
+        h_local = H // tp_h
+        start = ax.index(ax.model) * h_local
+        o = o[:, start:start + h_local]
+    return _heads_out(o, p["wo"], cfg, ax)
 
 
-def _decode_cross_attention(x, p, cfg: ModelConfig, ck, cv):
+def _decode_cross_attention(x, p, cfg: ModelConfig, ck, cv,
+                            ax: Axes = SINGLE):
     """Whisper's cross-attention at decode time over the layer's stored
     keys and values ``[B, T_enc, KV, hd]``, in plain PyTorch (the
-    reference's ``attention_partial``, outside any Pallas kernel)."""
+    reference's ``attention_partial``, outside any Pallas kernel), with
+    this rank's query heads over the KV heads their groups need."""
     B, _ = x.shape
     h = rms_norm(x, p["xnorm"], cfg.norm_eps)
-    q = dense(h, p["xwq"]).reshape(B, cfg.n_heads, cfg.head_dim)
+    q = dense(h, p["xwq"]).reshape(B, -1, cfg.head_dim)
+    ck, cv = _local_kv_slice(ck, cv, cfg, ax)
     valid = torch.ones(ck.shape[:2], dtype=torch.bool, device=ck.device)
     part = attention_partial(q, ck, cv, valid)
     o = part.acc / torch.clamp(part.l, min=1e-30)[..., None]
-    return dense(o.to(x.dtype).reshape(B, -1), p["xwo"])
+    return _heads_out(o.reshape(B, q.shape[1], -1), p["xwo"], cfg, ax)
 
 
 def _decode_tables(kv: PagedKV, spec: KVSpec, dev) -> tuple:
     """The two tier launches' page tables and live counts, on ``dev``:
-    tier 1 reads the resident pages, tier 2 the pages that are not
-    resident, both only inside the read window ``[lo, lo + read_pages)``
-    (every page without one) and both counting the token just written."""
+    tier 1 reads the resident pages, tier 2 the owned pages that are not
+    resident (an unowned page is -1 in both), both only inside the read
+    window ``[lo, lo + read_pages)`` (every page without one) and both
+    counting the token just written."""
     slot1, nonres = kv.page_slot, kv.page_slot < 0
     if spec.read_pages > 0:
         lo = kvp.read_window_start(kv.lengths, spec)[:, None]
@@ -237,12 +327,18 @@ def _decode_tables(kv: PagedKV, spec: KVSpec, dev) -> tuple:
     return tuple(to_device(t, dev) for t in (slot1, slot2, kv.lengths + 1))
 
 
-def make_decode_step(cfg: ModelConfig, sc: ServeConfig):
+def make_decode_step(cfg: ModelConfig, sc: ServeConfig, ax: Axes = SINGLE,
+                     ms: pm.MeshSizes = pm.MeshSizes()):
     """The decode step ``(params, DecodeState, tokens [B]) -> (DecodeState,
     (next_tokens [B] int32, logprobs [B] f32))``, on the parameters'
-    device. The pools and the recurrent states are updated in place."""
+    device; under a mesh (``ax``, ``ms``) this rank's step over its
+    parameter shard, batch shard and page shard. The pools and the
+    recurrent states are updated in place."""
     check_supported(cfg, sc)
-    spec = make_kv_spec(cfg, sc)
+    spec = make_kv_spec(cfg, sc, page_shards(ax, sc.page_axes))
+    me = page_shard_index(ax, sc.page_axes)
+    names = _page_names(ax, sc.page_axes)
+    fdims = pm.fsdp_dims(cfg, ms) if ax.data is not None else None
     ssm = cfg.ssm or SSMConfig()
     cfg_ol = ol.OLConfig()
     # The learner's beta ** losses table, as wide as an epoch's most
@@ -254,7 +350,7 @@ def make_decode_step(cfg: ModelConfig, sc: ServeConfig):
         dev = params["embed"].device
         kv = state.kv
         if kv is not None:
-            kv, plan = kvp.alloc_step(kv, spec, cfg_ol, pw)
+            kv, plan = kvp.alloc_step(kv, spec, cfg_ol, pw, me)
             pools = kvp.pools_of(kv, spec)
             kvp.write_back_evicted(pools, plan)
             index = kvp.token_index(plan, kv.lengths, spec, dev)
@@ -262,33 +358,36 @@ def make_decode_step(cfg: ModelConfig, sc: ServeConfig):
             pos = to_device(kv.lengths, dev)
             rope = (None if cfg.family == "audio" else
                     rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta))
-        x = embed(to_device(torch.as_tensor(tokens), dev), params["embed"])
+        x = embed(to_device(torch.as_tensor(tokens), dev),
+                  _gathered(params, "embed", ax, fdims), ax)
         if cfg.family == "audio":
             x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
-        for layer in layers(params, cfg):
+        for layer in layers(params, cfg, ax, fdims):
             p = layer.p
             if layer.kind.startswith("attn"):
                 x = x + _decode_attention(x, p, cfg, pools, index, tables,
-                                          layer.li, rope, spec.window)
+                                          layer.li, rope, spec.window, ax,
+                                          names)
                 if cfg.enc_dec:
                     st = _layer_state(state, layer)
                     x = x + _decode_cross_attention(x, p, cfg, st["ck"],
-                                                    st["cv"])
-                x = x + ffn(x, p, cfg)
+                                                    st["cv"], ax)
+                x = x + ffn(x, p, cfg, ax)
                 continue
             st = _layer_state(state, layer)
             h = rms_norm(x, p["norm"], cfg.norm_eps)
             if layer.kind == "rglru":
-                out, new = recurrent_block_step(h, st, p)
+                out, new = recurrent_block_step(h, st, p, ax)
                 x = x + out
-                x = x + ffn(x, p, cfg)
+                x = x + ffn(x, p, cfg, ax)
             else:
-                out, new = ssd_block_step(h, st, p, ssm)
+                out, new = ssd_block_step(h, st, p, ssm, ax)
                 x = x + out
             for k, v in new.items():
                 st[k].copy_(v)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        tok, logprob = unembed_greedy(x, _unembedding(params, cfg))
+        ue = _gathered(params, _unembedding_key(params, cfg), ax, fdims)
+        tok, logprob = unembed_greedy(x, ue, ax)
         if kv is not None:
             kv = kv._replace(lengths=kv.lengths + 1, t=kv.t + 1)
         return state._replace(kv=kv), (tok, logprob)
@@ -296,7 +395,8 @@ def make_decode_step(cfg: ModelConfig, sc: ServeConfig):
     return step
 
 
-def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
+def make_prefill_step(cfg: ModelConfig, sc: ServeConfig, ax: Axes = SINGLE,
+                      ms: pm.MeshSizes = pm.MeshSizes()):
     """The prefill ``(params, tokens [B, S], extras=None) -> (DecodeState,
     (first_token, logprob))``: a full forward over the prompt that fills
     both pools and sets the tier-1 residency (the newest pages resident),
@@ -304,9 +404,13 @@ def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
     whisper's stub frame embeddings (``"frames" [B, T_enc, d]``: the
     encoder runs once, and each decoder layer's cross-attention keys and
     values are kept) or a VLM's patch embeddings (``"prefix_embeds" [B,
-    P, d]``: a bidirectional prefix before the prompt, in the pools)."""
+    P, d]``: a bidirectional prefix before the prompt, in the pools).
+    Under a mesh (``ax``, ``ms``) this is the rank's prefill of its batch
+    shard with its parameter shard, writing the pages it owns."""
     check_supported(cfg, sc)
-    spec = make_kv_spec(cfg, sc)
+    spec = make_kv_spec(cfg, sc, page_shards(ax, sc.page_axes))
+    me = page_shard_index(ax, sc.page_axes)
+    fdims = pm.fsdp_dims(cfg, ms) if ax.data is not None else None
     reps, tail = pm.model_layout(cfg)
     needs_kv = _needs_kv(cfg)
 
@@ -315,27 +419,28 @@ def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
         dev = params["embed"].device
         tokens = torch.as_tensor(tokens).to(dev)
         prefix = extras.get("prefix_embeds") if cfg.vlm_prefix else None
-        x, prefix_len, rope = positions_in(embed(tokens, params["embed"]),
-                                           cfg, prefix_embeds=prefix)
+        x, prefix_len, rope = positions_in(
+            embed(tokens, _gathered(params, "embed", ax, fdims), ax), cfg,
+            prefix_embeds=prefix)
         B, S = x.shape[:2]
         enc_out = None
         if cfg.enc_dec:
             enc_out = encode_frames(torch.as_tensor(extras["frames"]).to(dev),
-                                    params, cfg)
+                                    params, cfg, ax=ax, fdims=fdims)
         kv = index = None
         pad_s = (-S) % spec.page_size
         if needs_kv:
-            kv = kvp.init_paged_kv(spec, device=dev)
+            kv = kvp.init_paged_kv(spec, device=dev, me=me)
             kv = kvp.prefill_residency(kv, spec,
                                        torch.full((B,), S, dtype=torch.int32))
             # Every layer's page-copy indices, on the card once a prefill.
             index = kvp.prefill_index(kv, (S + pad_s) // spec.page_size, dev)
         states = [[None] * reps for _ in cfg.block_pattern]
         rec_tail = []
-        for layer in layers(params, cfg):
+        for layer in layers(params, cfg, ax, fdims):
             x, ex = apply_block(layer.kind, x, layer.p, cfg, rope,
                                 capture=True, prefix_len=prefix_len,
-                                enc_out=enc_out)
+                                enc_out=enc_out, ax=ax)
             st = {}
             if layer.kind.startswith("attn"):
                 k, v = ex
@@ -357,7 +462,8 @@ def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
                 for k in reps_st[0]} if reps_st else {}
                for reps_st in states]
         x = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-        tok, logprob = unembed_greedy(x, _unembedding(params, cfg))
+        ue = _gathered(params, _unembedding_key(params, cfg), ax, fdims)
+        tok, logprob = unembed_greedy(x, ue, ax)
         return DecodeState(kv=kv, rec=rec, rec_tail=rec_tail), (tok, logprob)
 
     return step

@@ -35,11 +35,24 @@ pools are ``[1]`` placeholders. Functions that move data take ``pools``
 as ``(pool1, pool2)``, or ``(pool1, pool2, scale1, scale2)`` in int8
 mode (:func:`pools_of`).
 
-One card only: the page table is not sharded, so the card owns every
-page and each page's tier-2 slot is its flat id. With a read window
-(``read_pages`` > 0, for sliding-window attention) only the pages ``[lo,
-lo + read_pages)`` of a sequence are read, touched, counted as misses and
-promoted, ``lo`` being :func:`read_window_start`.
+Page shards. Under a mesh the pages are spread over the ranks of the
+page-shard axes by :func:`repro_torch.core.mapping.page_to_shard`
+(block, cyclic, random or round-robin; ``KVSpec.n_shards`` and
+``mapping``), and each rank is a page shard ``me``: it keeps tier 1 and
+tier 2 for the pages it owns and runs its own learner. Its tier-2 slot
+table (:func:`t2_slot_table`) numbers the owned pages in flat-id order
+and holds -1 for the others; every data path here skips a page whose
+slot is -1 (it reads as no page at all), the page table never gives an
+unowned page a tier-1 slot, and only the rank that owns a sequence's
+current page writes its token (``AllocPlan.write_here``). The PRNG key
+is split once per sequence and step on every shard, whether it owns the
+page or not, as the reference splits it. On one card (``n_shards`` = 1)
+the card owns every page and a page's tier-2 slot is its flat id.
+
+With a read window (``read_pages`` > 0, for sliding-window attention)
+only the pages ``[lo, lo + read_pages)`` of a sequence are read,
+touched, counted as misses and promoted, ``lo`` being
+:func:`read_window_start`.
 """
 from __future__ import annotations
 
@@ -50,6 +63,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import online_learning as ol
+from repro_torch.core.mapping import page_to_shard
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import threefry
 from repro_torch.kernels import page_gather as pg
@@ -59,7 +73,8 @@ __all__ = ["KVSpec", "PagedKV", "AllocPlan", "init_paged_kv", "alloc_step",
            "write_back_evicted", "token_index", "write_token_kv", "read_pages",
            "prefill_residency", "prefill_index", "prefill_write",
            "promote_pages",
-           "read_window_start", "n_attn_layers", "pools_of", "quantize"]
+           "read_window_start", "n_attn_layers", "pools_of", "quantize",
+           "t2_slot_table"]
 
 _I32 = torch.int32
 
@@ -72,7 +87,7 @@ def n_attn_layers(cfg: ModelConfig) -> tuple[int, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class KVSpec:
-    """Static geometry of the paged pool."""
+    """Static geometry of the paged pool (per page shard)."""
 
     b_local: int           # sequences
     n_pages: int           # pages per sequence (max_seq / page_size)
@@ -81,7 +96,9 @@ class KVSpec:
     head_dim: int
     layers_per_slot: int   # attention layers stored per page (stacked dim)
     hbm_slots: int         # tier-1 capacity (pages)
-    t2_slots: int          # tier-2 capacity (>= pages)
+    t2_slots: int          # tier-2 capacity (>= owned pages)
+    n_shards: int = 1      # page-shard group size (product of page axes)
+    mapping: str = "block_cyclic"
     read_pages: int = 0    # pages visible to decode attention (0 = all)
     window: int = 0        # sliding-window size in tokens (0 = full)
     dtype: str = "bfloat16"  # "int8" => per-(token, k/v) scaled quantization
@@ -93,6 +110,22 @@ class KVSpec:
     @property
     def total_pages(self) -> int:
         return self.b_local * self.n_pages
+
+    def owner(self, flat_id) -> torch.Tensor:
+        """The page shard that owns each flat page id (int32)."""
+        return torch.as_tensor(page_to_shard(
+            torch.as_tensor(flat_id).numpy(), self.n_shards,
+            self.total_pages, self.mapping))
+
+
+def t2_slot_table(spec: KVSpec, me: int) -> torch.Tensor:
+    """int32 ``[B, n_pages]``: each owned page's tier-2 slot (the owned
+    pages numbered in flat-id order), -1 for the pages shard ``me`` does
+    not own."""
+    mine = spec.owner(torch.arange(spec.total_pages, dtype=_I32)) == me
+    rank = torch.cumsum(mine.to(_I32), 0, dtype=_I32) - 1
+    return torch.where(mine, rank, -1).to(_I32).reshape(
+        spec.b_local, spec.n_pages)
 
 
 class PagedKV(NamedTuple):
@@ -121,11 +154,13 @@ class AllocPlan(NamedTuple):
     evict_slot: torch.Tensor  # [B] slot evicted to make room (-1 = none)
     evict_t2: torch.Tensor    # [B] tier-2 slot of the evicted page
     writeback: torch.Tensor   # [B] bool — evicted page dirty?
+    write_here: torch.Tensor  # [B] bool — this shard owns the current page
 
 
-def init_paged_kv(spec: KVSpec, seed: int = 0, *, device=None) -> PagedKV:
+def init_paged_kv(spec: KVSpec, seed: int = 0, *, device=None,
+                  me: int = 0) -> PagedKV:
     """Empty pools on ``device`` (``None`` = the card), the scales at 1;
-    metadata on the host."""
+    metadata on the host, with page shard ``me``'s tier-2 slot table."""
     device = resolve_device(device)
     dt = getattr(torch, spec.dtype)
     shape1 = (spec.hbm_slots + 1, spec.layers_per_slot, spec.page_size, 2,
@@ -141,8 +176,7 @@ def init_paged_kv(spec: KVSpec, seed: int = 0, *, device=None) -> PagedKV:
         scale2=torch.ones(sc2, **f32),
         meta=init_cache(spec.hbm_slots),
         page_slot=torch.full((spec.b_local, spec.n_pages), -1, dtype=_I32),
-        t2_slot=torch.arange(spec.total_pages, dtype=_I32).reshape(
-            spec.b_local, spec.n_pages),
+        t2_slot=t2_slot_table(spec, me),
         ols=ol.init_ol(ol.OLConfig()),
         lengths=torch.zeros(spec.b_local, dtype=_I32),
         t=torch.zeros(1, dtype=_I32),
@@ -184,12 +218,12 @@ def read_window_start(lengths: torch.Tensor, spec: KVSpec) -> torch.Tensor:
 
 
 def _readable(kv: PagedKV, spec: KVSpec) -> torch.Tensor:
-    """Pages holding tokens before the current one, inside the read
+    """Owned pages holding tokens before the current one, inside the read
     window."""
     p_range = torch.arange(spec.n_pages)[None, :]
     lo = read_window_start(kv.lengths, spec)
-    return (p_range * spec.page_size < kv.lengths[:, None]) & (
-        p_range >= lo[:, None])
+    return ((p_range * spec.page_size < kv.lengths[:, None])
+            & (p_range >= lo[:, None]) & (kv.t2_slot >= 0))
 
 
 # ---------------------------------------------------------------------------
@@ -199,15 +233,16 @@ def _readable(kv: PagedKV, spec: KVSpec) -> torch.Tensor:
 
 
 def alloc_step(kv: PagedKV, spec: KVSpec, cfg_ol: ol.OLConfig,
-               pw: torch.Tensor) -> tuple[PagedKV, AllocPlan]:
-    """Allocate tier-1 slots for each sequence's current page; evict via
-    the OL policy when full; update LRU/LFU metadata and the OL learner.
-    ``pw`` is the learner's ``pow_table`` (as wide as the most
-    mispredictions an epoch can count)."""
+               pw: torch.Tensor, me: int = 0) -> tuple[PagedKV, AllocPlan]:
+    """Allocate tier-1 slots for each sequence's current page that page
+    shard ``me`` owns; evict via the OL policy when full; update LRU/LFU
+    metadata and the OL learner. ``pw`` is the learner's ``pow_table`` (as
+    wide as the most mispredictions an epoch can count)."""
     B, NP, P = spec.b_local, spec.n_pages, spec.page_size
     page_idx = (kv.lengths // P).tolist()
     flat = kv.lengths // P + torch.arange(B, dtype=_I32) * NP
-    boundary = (kv.lengths % P == 0).tolist()
+    mine = spec.owner(flat) == me
+    boundary = ((kv.lengths % P == 0) & mine).tolist()
     t = int(kv.t[0])
 
     tags, valid, dirty, freq, ts = (x.clone() for x in kv.meta)
@@ -247,10 +282,10 @@ def alloc_step(kv: PagedKV, spec: KVSpec, cfg_ol: ol.OLConfig,
 
     # The current page receives this step's token KV (write-back cache:
     # mark it dirty so eviction copies it down to tier 2).
-    dirty[cur_slot[cur_slot >= 0].long()] = True
+    dirty[cur_slot[(cur_slot >= 0) & mine].long()] = True
 
-    # Touch the resident pages read this step (LRU ts / LFU freq); count
-    # tier-2 reads as misses for the learner.
+    # Touch the resident owned pages read this step (LRU ts / LFU freq);
+    # count tier-2 reads of owned pages as misses for the learner.
     readable = _readable(kv, spec)
     resident = page_slot >= 0
     read_res = readable & resident
@@ -276,7 +311,7 @@ def alloc_step(kv: PagedKV, spec: KVSpec, cfg_ol: ol.OLConfig,
         evictions=kv.evictions + int((evict_slot >= 0).sum()),
         writebacks=kv.writebacks + int(writeback.sum()))
     plan = AllocPlan(cur_slot=cur_slot, evict_slot=evict_slot,
-                     evict_t2=evict_t2, writeback=writeback)
+                     evict_t2=evict_t2, writeback=writeback, write_here=mine)
     return kv, plan
 
 
@@ -307,20 +342,29 @@ def token_index(plan: AllocPlan, lengths: torch.Tensor, spec: KVSpec,
                 device) -> tuple:
     """Where this step's tokens land, on ``device``, once a step: each
     sequence's current tier-1 slot (clipped at 0, as the reference does)
-    and the offset in its page."""
+    and the offset in its page, then the rows this shard writes (None
+    where it writes every row: it owns every current page)."""
+    rows = None
+    if not bool(plan.write_here.all()):
+        rows = torch.nonzero(plan.write_here)[:, 0]
     slot = plan.cur_slot.clamp(min=0)
     off = lengths % spec.page_size
-    return tuple(to_device(x.long(), device) for x in (slot, off))
+    if rows is not None:
+        slot, off = slot[rows], off[rows]
+        rows = to_device(rows, device)
+    return tuple(to_device(x.long(), device) for x in (slot, off)) + (rows,)
 
 
 def write_token_kv(pool1: torch.Tensor, kv_new, index: tuple,
                    li: int, scale1=None) -> None:
     """Write this step's K/V of layer ``li`` (``k_new``, ``v_new``: [B, KV,
     hd]) into the current tier-1 pages at ``index`` (:func:`token_index`),
-    in place; with ``scale1`` (int8 mode) quantized, each token's K and V
-    scale beside it."""
-    slot, off = index
+    in place, for the rows this shard writes; with ``scale1`` (int8 mode)
+    quantized, each token's K and V scale beside it."""
+    slot, off, rows = index
     new = torch.stack(kv_new, dim=1)                   # [B, 2, KV, hd]
+    if rows is not None:
+        new = new[rows]
     if scale1 is None:
         pool1[:, li][slot, off] = new.to(pool1.dtype)
         return
@@ -333,9 +377,11 @@ def read_pages(pools, kv: PagedKV, spec: KVSpec, li: int):
     """Gather the readable KV of layer ``li`` (the reference's single-pass
     read): ``(k, v, valid)``, ``[B, R * page, KV, hd]`` over the ``R``
     pages from :func:`read_window_start` (``read_pages``, or every page
-    without a read window) with the mask of live tokens: at or before the
-    current one, and inside the sliding window where there is one —
-    resident pages from tier 1, the others from their tier-2 home. The
+    without a read window) with the mask of live tokens of owned pages: at
+    or before the current one, and inside the sliding window where there
+    is one — resident pages from tier 1, the others from their tier-2
+    home (a page this shard does not own is masked, as the reference's
+    ``owned = t2 >= 0``). The
     decode step reads the two tiers with the paged-attention kernel
     instead; this is the plain read the tests hold it against.
 
@@ -356,6 +402,8 @@ def read_pages(pools, kv: PagedKV, spec: KVSpec, li: int):
     p_idx = p_idx.clamp(max=NP - 1).long()
     slot = torch.gather(kv.page_slot.to(dev), 1, p_idx).long()
     t2 = torch.gather(kv.t2_slot.to(dev), 1, p_idx).long()
+    owned = t2 >= 0
+    t2 = t2.clamp(min=0)
     res = slot >= 0
     data = torch.where(res[..., None, None, None, None],
                        pool1[slot.clamp(min=0), li], pool2[t2, li])
@@ -368,7 +416,7 @@ def read_pages(pools, kv: PagedKV, spec: KVSpec, li: int):
     k = data[..., 0, :, :].reshape(B, R * P, spec.n_kv, spec.head_dim)
     v = data[..., 1, :, :].reshape(B, R * P, spec.n_kv, spec.head_dim)
     tok = p_idx[..., None] * P + torch.arange(P, device=dev)  # [B, R, P]
-    valid = (tok <= lengths[:, None, None]) & inside[..., None]
+    valid = (tok <= lengths[:, None, None]) & (inside & owned)[..., None]
     if spec.window > 0:
         valid &= tok > lengths[:, None, None] - spec.window
     return k, v, valid.reshape(B, R * P)
@@ -382,14 +430,14 @@ def read_pages(pools, kv: PagedKV, spec: KVSpec, li: int):
 def prefill_residency(kv: PagedKV, spec: KVSpec,
                       prompt_len: torch.Tensor) -> PagedKV:
     """Tier-1 residency after a prefill of ``prompt_len`` tokens: the most
-    recent pages become resident, older ones live only in tier 2.
+    recent owned pages become resident, older ones live only in tier 2.
     Sets meta / page_slot / lengths (the pools are filled per layer by
-    :func:`prefill_write`)."""
+    :func:`prefill_write`, which writes the owned pages alone)."""
     B, NP = spec.b_local, spec.n_pages
     p_range = torch.arange(NP)[None, :]
     prompt_len = prompt_len.to(_I32).cpu()
     in_prompt = p_range * spec.page_size < prompt_len[:, None]
-    cand = in_prompt.reshape(-1)
+    cand = (in_prompt & (kv.t2_slot >= 0)).reshape(-1)
     key = (p_range * B + torch.arange(B)[:, None]).reshape(-1)
     big = torch.iinfo(_I32).max
     sort_key = torch.where(cand, -key, torch.full_like(key, big))
@@ -431,8 +479,9 @@ def prefill_index(kv: PagedKV, npg: int, device=None) -> tuple:
 def prefill_write(pools, kv: PagedKV, spec: KVSpec, li: int,
                   k: torch.Tensor, v: torch.Tensor, index=None) -> None:
     """Write one layer's prefill KV (``[B, S, KV, hd]``, S a page multiple)
-    into both pools with two page-copy launches: every page into
-    tier 2, the resident ones into tier 1 too. In int8 mode the pages are
+    into both pools with two page-copy launches: every owned page into
+    tier 2, the resident ones into tier 1 too (an unowned page's slots are
+    -1, so the copy skips it). In int8 mode the pages are
     quantized first and their scales copied alike (two launches more).
     ``index`` is :func:`prefill_index`'s, built once a prefill (by default
     it is built here, on the host)."""
@@ -456,7 +505,7 @@ def prefill_write(pools, kv: PagedKV, spec: KVSpec, li: int,
 
 
 def promote_pages(kv: PagedKV, spec: KVSpec, n_promote: int = 2) -> PagedKV:
-    """Promote up to ``n_promote`` readable-but-nonresident pages into
+    """Promote up to ``n_promote`` readable-but-nonresident owned pages into
     free tier-1 slots ("prefetching is performed only if there are empty
     slots"): the choice on the host, the copies of whole slots in one
     page-copy launch (and one more for their scales in int8 mode)."""

@@ -56,8 +56,14 @@ buffer sets, counters bit-identical to the engine. ``stream="auto"``
 :data:`STREAM_THRESHOLD` requests; ``"off"`` forces everything through
 the megabatch.
 
-The sweep runs on one device. The reference's split of the point axis
-over several devices (``shard_map``) and its XLA knobs ``unroll`` and
+**Point split** (``devices=`` keyword): the megabatch's point axis is
+split over a list of cards, as the reference splits it over its local
+devices with ``shard_map``: each bucket's point count is padded up to a
+multiple of the number of cards (with copies of its first point, dropped
+after the gather), each card's rows are launched from one host thread
+(launches are asynchronous, so the cards overlap), and the rows are
+gathered back in point order. With one card (the default, ``device``)
+nothing is padded or split. The reference's XLA knobs ``unroll`` and
 ``donate`` have no counterpart here.
 """
 from __future__ import annotations
@@ -79,6 +85,7 @@ from repro_torch.core.queuing import (
 from repro_torch.core.traffic import make_stream, make_timed_stream
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cache_scan import cold_keys, fused_cache_scan
+from repro_torch.launch.compat import device_mesh
 from repro_torch.sim.engine import (
     TenantCounters,
     Tier1Counters,
@@ -357,11 +364,13 @@ class _PendingBucket:
     counts: list         # per-point per-shard real request counts
     writes: list         # per-point per-shard write counts
     cap: int             # padded stream length (bucket)
-    stats: StreamStats   # [N * S] rows on the device (in flight)
+    stats: list          # StreamStats of [N_card * S] rows, a card each,
+                         # in point order (in flight)
 
     def gather(self) -> dict:
-        # Copying to the host waits for the kernel.
-        stacked = StreamStats(*(x.cpu() for x in self.stats))
+        # Copying to the host waits for the kernels.
+        stacked = StreamStats(*(torch.cat([x.cpu() for x in xs])
+                                for xs in zip(*self.stats)))
         S = len(self.counts[0])
         out = {}
         for i, sig in enumerate(self.sigs):
@@ -373,13 +382,14 @@ class _PendingBucket:
 
 
 def _dispatch_group(
-    specs: list[SimSpec], sigs: list, *, device: torch.device,
+    specs: list[SimSpec], sigs: list, *, devices: Sequence[torch.device],
     engine: str = "fused", _prof: Optional[dict] = None,
 ) -> list[_PendingBucket]:
     """Partition, bucket, pad and launch every unique cache signature of
-    one batch-key group. Returns pending buckets; the card computes while
-    the caller prepares and launches later groups. ``_prof`` accumulates
-    ``stream_gen`` / ``engine_dispatch`` seconds (submission side — see
+    one batch-key group, each bucket's points split over ``devices``.
+    Returns pending buckets; the cards compute while the caller prepares
+    and launches later groups. ``_prof`` accumulates ``stream_gen`` /
+    ``engine_dispatch`` seconds (submission side — see
     ``engine_dispatch_submit``)."""
     store_static = specs[0].store.static_config()
     n_shards = specs[0].n_shards
@@ -429,14 +439,16 @@ def _dispatch_group(
     for m in members:
         buckets.setdefault(m.bucket, []).append(m)
 
+    n_dev = len(devices)
     pending = []
     for cap, group in sorted(buckets.items()):
         n = len(group)
-        sh_pages = np.zeros((n, n_shards, cap), np.int32)
-        sh_writes = np.zeros((n, n_shards, cap), bool)
+        n_pad = -(-n // n_dev) * n_dev  # the point axis splits evenly
+        sh_pages = np.zeros((n_pad, n_shards, cap), np.int32)
+        sh_writes = np.zeros((n_pad, n_shards, cap), bool)
         # Bucket-extension positions are padding: window id n_windows
         # drops them from the windowed counters.
-        sh_win = np.full((n, n_shards, cap), n_windows, np.int32)
+        sh_win = np.full((n_pad, n_shards, cap), n_windows, np.int32)
         for i, m in enumerate(group):
             w = m.sh_pages.shape[1]
             # Rows come pre-padded with their shard's last page; extending
@@ -445,16 +457,25 @@ def _dispatch_group(
             sh_pages[i, :, w:] = m.sh_pages[:, -1:]
             sh_writes[i, :, :w] = m.sh_writes
             sh_win[i, :, :w] = m.sh_win
+        # Padded points repeat the first: discarded after the gather.
+        sh_pages[n:], sh_writes[n:], sh_win[n:] = (
+            sh_pages[0], sh_writes[0], sh_win[0])
+        stores = [m.spec.store for m in group]
+        hyper = _stack_hypers(stores + [stores[0]] * (n_pad - n))
 
         log.info(
             "sweep: dispatch %d points x %d shards @ len %d "
-            "(n_lines=%d, windows=%d, timed=%s, device=%s)",
+            "(n_lines=%d, windows=%d, timed=%s, devices=%s)",
             n, n_shards, cap, store_static.n_lines, n_windows, timed,
-            device,
+            list(devices),
         )
-        stats = _launch_rows(
-            store_static, _stack_hypers([m.spec.store for m in group]),
-            sh_pages, sh_writes, sh_win, n_windows, device, engine)
+        per = n_pad // n_dev
+        stats = [_launch_rows(
+            store_static, StoreHyper(*(x[c * per:(c + 1) * per]
+                                       for x in hyper)),
+            sh_pages[c * per:(c + 1) * per], sh_writes[c * per:(c + 1) * per],
+            sh_win[c * per:(c + 1) * per], n_windows, dev, engine)
+            for c, dev in enumerate(devices)]
         pending.append(_PendingBucket(
             sigs=[m.sig for m in group],
             counts=[m.counts for m in group],
@@ -486,9 +507,12 @@ def sweep(
     profile: bool = False,
     verbose: bool = False,
     device=None,
+    devices: Optional[Sequence] = None,
 ) -> SweepResult:
     """Evaluate ``base`` at every point of the ``axes`` grid on ``device``
-    (``None`` = the card, raising when there is none).
+    (``None`` = the card, raising when there is none), the megabatch's
+    points split over ``devices`` (default: ``device`` alone; see the
+    module docstring's point split).
 
     ``axes`` is either a ``{dotted.path: values}`` mapping (expanded to
     its cartesian grid) or an explicit sequence of override dicts.
@@ -550,6 +574,8 @@ def sweep(
             "path exists as the scan-engine reference")
     _check_engine(engine)
     device = resolve_device(device)
+    devices = ((device,) if devices is None
+               else device_mesh("points", devices))
     if verbose:
         # Convenience for interactive use: make this module's INFO progress
         # lines visible regardless of how (or whether) the app configured
@@ -610,7 +636,7 @@ def sweep(
             )
             pending.extend(
                 _dispatch_group([unique[s] for s in sigs], sigs,
-                                device=device, engine=engine, _prof=prof)
+                                devices=devices, engine=engine, _prof=prof)
             )
         t0 = perf_counter()
         for bucket in pending:

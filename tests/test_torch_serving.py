@@ -23,8 +23,8 @@ by ``params_from_numpy``:
 - the one-launch whole-slot write-back against the reference's per-layer
   write-back, pools equal bit for bit over 48 steps with evictions;
 - the inclusion invariant of ``tests/test_serving.py``;
-- ``NotImplementedError`` for page sharding, which the port does not
-  serve; and int8 KV pools served (their parity with the reference is
+- page sharding accepted by the steps, and ``NotImplementedError`` for
+  sharded training, which waits; and int8 KV pools served (their parity with the reference is
   ``tests/test_torch_int8_kv.py``).
 """
 import dataclasses
@@ -45,6 +45,7 @@ from repro_torch.configs.archs import ARCHS as T_ARCHS
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import online_learning as tol
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import spmd as tspmd
 from repro_torch.models.layers import unembed_greedy
 from repro_torch.models.transformer import fwd_hidden
 from repro_torch.serving import engine as teng
@@ -357,12 +358,18 @@ def test_one_launch_write_back_and_inclusion(hbm_fraction):
     ("stablelm-3b", {"page_axes": ("model",)}, "several cards"),
 ])
 def test_unsupported_raises(name, over, match):
+    """Page sharding is served now: the steps build with ``page_axes``
+    (one page shard outside a mesh, as the reference's ``SINGLE``). What
+    still waits is training sharded over several cards, which raises
+    naming its ROADMAP item."""
     cfg = T_ARCHS[name].reduced()
     sc = teng.ServeConfig(max_seq=64, batch_local=2, **over)
+    teng.make_decode_step(cfg, sc)
+    teng.make_prefill_step(cfg, sc)
     with pytest.raises(NotImplementedError, match=match):
-        teng.make_decode_step(cfg, sc)
-    with pytest.raises(NotImplementedError, match=match):
-        teng.make_prefill_step(cfg, sc)
+        tspmd.build_train_step(cfg, None)
+    with pytest.raises(NotImplementedError, match="module item 4"):
+        tspmd.build_train_step(cfg, None)
 
 
 @pytest.mark.parametrize("name", ["recurrentgemma-9b", "stablelm-3b"])

@@ -1,0 +1,140 @@
+"""The port's side of ``test_torch_sharded_serve.py``: one rank of a mesh
+serving the jobs of ``torch_sharded_serve_ref.py`` through
+``repro_torch.launch.spmd.build_serve``. Spawned by
+``repro_torch.launch.mesh.spawn_ranks``; imports neither JAX nor
+``repro``."""
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.archs import ARCHS
+from repro_torch.convert import params_from_numpy
+from repro_torch.launch import spmd
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.serving.engine import ServeConfig
+
+
+def kv_ints(kv) -> dict:
+    """The integer state of a rank's pools and its learner's weights."""
+    m, o = kv.meta, kv.ols
+    out = dict(tags=m.tags, valid=m.valid, dirty=m.dirty, freq=m.freq,
+               ts=m.ts, page_slot=kv.page_slot, t2_slot=kv.t2_slot,
+               pred=o.pred, pred_n=o.pred_n, mispred=o.mispred,
+               epoch_misses=o.epoch_misses, chosen=o.chosen,
+               lengths=kv.lengths, t=kv.t, key=torch.tensor(kv.key),
+               t2_reads=kv.t2_reads, t1_reads=kv.t1_reads)
+    out = {k: v.numpy().astype(np.int64) for k, v in out.items()}
+    out["weights"] = kv.ols.weights.numpy().copy()
+    return out
+
+
+def _rec(state) -> list:
+    return [[{k: v.float().numpy().copy() for k, v in d.items()}
+             for d in rec] for rec in (state.rec, state.rec_tail)]
+
+
+def serve_rank(rank, dev, shape, axes, jobs):
+    mesh = make_mesh(shape, axes)
+    out = []
+    for job in jobs:
+        cfg = dataclasses.replace(ARCHS[job["arch"]].reduced(),
+                                  param_dtype="float32")
+        sc = ServeConfig(**job["sc"])
+        prefill, decode, specs = spmd.build_serve(cfg, mesh, sc)
+        params = spmd.shard_for_rank(
+            params_from_numpy(job["params"], device="cpu"), cfg, mesh)
+        prompts = spmd.local_batch(torch.as_tensor(job["prompts"]), specs)
+        forced = spmd.local_batch(torch.as_tensor(job["forced"]), specs)
+        extras = spmd.local_batch(
+            {k: torch.as_tensor(v) for k, v in job["extras"].items()}, specs)
+        state, (tok, lp) = prefill(params, prompts, extras)
+        steps = []
+        for t in range(forced.shape[1] + 1):
+            steps.append(dict(
+                tok=tok.numpy().copy(), lp=lp.numpy().copy(),
+                kv=None if state.kv is None else kv_ints(state.kv),
+                rec=_rec(state)))
+            if t == forced.shape[1]:
+                break
+            state, (tok, lp) = decode(params, state, forced[:, t])
+        out.append(dict(steps=steps, coords=mesh.coords(),
+                        page_shard=specs.page_shard,
+                        batch_shard=specs.batch_shard))
+    return out
+
+
+def _np(x, dt):
+    """The result as numpy, after checking it kept its dtype."""
+    assert x.dtype == dt, (x.dtype, dt)
+    return x.to(torch.float64 if dt.is_floating_point else x.dtype).numpy()
+
+
+def axes_rank(rank, dev, seed):
+    """Every collective of ``Axes`` on a (data 2, model 2) mesh over
+    seeded inputs (each rank draws all four ranks' and keeps its own)."""
+    from repro_torch.distributed.axes import SINGLE
+    from repro_torch.launch.mesh import axes_for_mesh
+    from repro_torch.models.attention import Partial, combine_shards
+    mesh = make_mesh((2, 2), ("data", "model"))
+    ax = axes_for_mesh(mesh)
+    rng = np.random.default_rng(seed)
+    xs = rng.integers(-50, 50, (4, 3, 5))
+    out = {"coords": mesh.coords(), "sizes": (ax.data_size, ax.model_size,
+                                              ax.pod_size, ax.batch_shards()),
+           "tp": (ax.tp_degree(8), ax.tp_degree(3))}
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        x = torch.as_tensor(xs[rank]).to(dt)
+        for name, names in (("data", ("data",)), ("model", ("model",)),
+                            ("both", ("data", "model")),
+                            ("with_none", ("model", None))):
+            out[("psum", str(dt), name)] = _np(ax.psum_many(x, names), dt)
+            out[("pmax", str(dt), name)] = _np(ax.pmax_many(x, names), dt)
+        for name in ("data", "model"):
+            out[("psum1", str(dt), name)] = _np(ax.psum(x, name), dt)
+            out[("pmax1", str(dt), name)] = _np(ax.pmax(x, name), dt)
+            for dim in (0, 1):
+                out[("gather", str(dt), name, dim)] = _np(
+                    ax.all_gather(x, name, axis=dim), dt)
+    x = torch.as_tensor(xs[rank], dtype=torch.float32)
+    out["single"] = all(
+        f(x) is x for f in (lambda t: SINGLE.psum(t, None),
+                            lambda t: SINGLE.pmax_many(t, (None,)),
+                            lambda t: ax.psum_many(t, ()),
+                            lambda t: ax.all_gather(t, None, axis=1),
+                            lambda t: ax.fsdp_gather(t, None)))
+    try:
+        ax.psum(x.requires_grad_(), "model")
+        out["autograd"] = "accepted"
+    except RuntimeError as e:
+        out["autograd"] = str(e)
+    # The page shards' combine with rank 3's partial empty (no live
+    # token): acc 0, m -1e30, l 0.
+    parts = rng.normal(size=(4, 2, 3, 4))
+    acc = torch.as_tensor(parts[rank, :, :, :4], dtype=torch.float32)
+    m = torch.as_tensor(parts[rank, :, :, 0] * 3, dtype=torch.float32)
+    l = torch.as_tensor(np.abs(parts[rank, :, :, 1]) + 0.5,
+                        dtype=torch.float32)
+    if rank == 3:
+        acc, m, l = (torch.zeros_like(acc), torch.full_like(m, -1e30),
+                     torch.zeros_like(l))
+    out["combine"] = combine_shards(Partial(acc, m, l), ax,
+                                    ("data", "model")).numpy()
+    out["parts"] = parts
+    return out
+
+
+def card_axes_rank(rank, dev):
+    """A (model 2) mesh on ranks that share the card: collectives of CUDA
+    tensors, each result's device and the backend."""
+    from repro_torch.launch.mesh import axes_for_mesh
+    mesh = make_mesh((2,), ("model",))
+    ax = axes_for_mesh(mesh)
+    x = torch.full((3,), rank + 1.0, device=dev)
+    s = ax.psum(x, "model")
+    m = ax.pmax_many(x.to(torch.bfloat16), ("model",))
+    g = ax.all_gather(x[:1].reshape(1, 1), "model", axis=1)
+    return dict(backend=mesh.backend,
+                devices=[str(t.device) for t in (s, m, g)],
+                psum=s.cpu().numpy(), pmax=m.float().cpu().numpy(),
+                gather=g.cpu().numpy())
