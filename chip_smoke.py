@@ -16,8 +16,8 @@ after:
 4. ``simulate`` on the §V worked example;
 5. ``simulate``'s stages on the full-size deployment (16 shards x 16,384
    lines, 2^22 requests), and the cache-scan kernel's masked mode against
-   its plain version on requests 98,304 to 114,687 of its rows, from the
-   carry the kernel left after the first 98,304 (each row's cache fills
+   its plain version on requests 100,352 to 108,543 of its rows, from the
+   carry the kernel left after the first 100,352 (each row's cache fills
    and begins to evict in that window);
 6. the reuse-distance kernel against its plain version at small shapes,
    and on general rows (prev not a previous-occurrence array, valid not
@@ -28,10 +28,10 @@ after:
    of the full-size deployment under LRU (one reuse-distance launch, no
    cache-scan launch), its counters at 16,384 lines against the
    cache-scan kernel's, and the reuse kernel against its plain version on
-   the whole distance array;
+   the first MRC_PLAIN_ROWS rows of the distance array;
 9. the sweep's megabatch at full width: 16 points, 8 cache signatures,
    one cache-scan launch of 128 rows, and the cache-scan kernel against
-   its plain version on those rows' first 2^14 steps;
+   its plain version on those rows' first 2^13 steps;
 10. serving at full width: mistral-nemo-12b in bf16 (weights from seed 0)
    at 20 of its 40 layers (the depth cut keeps the smoke inside its time
    limit), 8 requests x 3,072-token prompts, prefill and 257 greedy
@@ -69,7 +69,7 @@ after:
    ``engine="scan"`` on the card against the fused kernel.
 14. training (``repro_torch.launch.train.run_training``): (a) stablelm-3b
    at full width (bf16 weights, f32 AdamW moments and error feedback,
-   remat) for 8 steps of 2 x 4,096 tokens from the two-tier data-shard
+   remat) for 6 steps of 2 x 4,096 tokens from the two-tier data-shard
    cache: finite losses and grad norms, the median step time, tokens/s,
    model FLOP/s against the bf16 peak, peak memory, the card's busy share
    over one step (``torch.profiler``) and the cache's hits and misses;
@@ -145,6 +145,21 @@ after:
    holds each against its plain version at the sharded shapes. It prints
    the backend, each rank's decode ms a step and its collectives a step
    and their share of the step.
+22. training across ranks (``repro_torch.launch.spmd.build_train_step``),
+   on phase 21's 4 ranks, after its serve: (a) stablelm-3b at full width
+   and 4 of its 32 layers on (data 2, model 2), bf16 with remat, f32
+   AdamW moments, SHARDED_TRAIN's 2 x 4,096 tokens (1 x 4,096 a data
+   shard), 3 steps: every step finite and applied on every rank, the
+   metrics equal on every rank, no hand kernel launched; each rank's step
+   ms, its collectives by kind (the backward's included: the FSDP
+   gathers' reduce-scatters, the entry markers' sums) with their calls,
+   bytes and share of the step, and its peak memory; (b) the reduced
+   stablelm-3b in f32 on (data 2, model 2), and on (pod 2, data 2) with
+   int8-compressed pod gradients, 2 steps each, every rank's metrics and
+   blocks of the parameters and both moments against the one-card step on
+   the card, within the CPU tests' bars
+   (``tests/test_torch_sharded_train.py``); (c) a planted fault, the data
+   axis's sum of the replicated leaves' gradients dropped, above them.
 
 It prints:
 
@@ -175,6 +190,7 @@ It prints:
   ``whisper_self_`` (flash) or ``whisper_``, ``vlm_prefix_`` and ``moe_``
   keys; and phase 21's sharded shapes of flash, paged attention and page
   copy under ``sharded_`` keys, rank 0's, beside the one-card ones);
+- each phase's end, in seconds from the start (``[smoke] phase ...``);
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits nonzero. Without CUDA, or without the
@@ -220,17 +236,24 @@ PUBLISHED_LAM_EFF = 86.6  # §V worked example
 # each full-size row from the masked mode's carried state at request
 # WINDOW_START: every row's 16,384 lines fill (its 16,384th distinct page
 # arrives between requests 103,071 and 107,078) and evictions begin
-# inside the window, which ends at request 114,687. (A prefix of 2^17
+# inside the window, which ends at request 108,543. (A prefix of 2^17
 # requests from an empty cache held the same events, but its plain
-# per-step loop took 180-270 s; a window of 2^15 took 94-123 s.)
-WINDOW_START, WINDOW = 3 * 2**15, 2**14
+# per-step loop took 180-270 s; a window of 2^15 took 94-123 s, of 2^14
+# from request 98,304 47-75 s until PR 25, which cut it to pay for phase
+# 22; the phase checks that every row fills and evicts in the window.)
+WINDOW_START, WINDOW = 3 * 2**15 + 2**11, 2**13
 # Megabatch steps per row held against the plain version. Its rows fill
 # their 16,384 lines near step 105,000, so this prefix covers the fill
 # only; eviction under each policy and beta is held in phases 3 and 7,
 # and at full size under ws in phase 5. The plain version's per-step loop
 # takes about 2 ms a step on an H100 (PERF.md), and 2^17 steps here
 # would take a fifth of the smoke's time (2^15 took 69 s).
-MEGA_PREFIX = 2**14
+# (2^14 until PR 25, whose phase 22 its 30 s of plain loop paid half of.)
+MEGA_PREFIX = 2**13
+# Phase 8 holds the reuse kernel against the plain O(L^2) count on this
+# many of the MRC route's 16 rows of 2^19 (all 16 until PR 25, 40-47 s of
+# the plain count; cut to pay for phase 22).
+MRC_PLAIN_ROWS = 4
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 # The serves' shape: 8 requests of 3,072-token prompts, 257 decode steps,
 # tier 1 at half the pages, promotion every 4 steps, at full width.
@@ -282,10 +305,11 @@ SSD_F32_TOL = 1e-4
 # within SSD_F32_TOL) carry the fine bar.
 SSD_HIDDEN_TOL = 0.2
 # Phase 14: training. (a) stablelm-3b at full width, 2 x 4,096 tokens (the
-# sequence of SHAPES["train_4k"]), 8 steps with the reference launcher's
-# hyperparameters; the step time is the median of steps 3-8.
-TRAIN = dict(arch="stablelm-3b", batch=2, seq=4096, steps=8, lr=3e-4)
-TRAIN_TIMED = slice(2, 8)
+# sequence of SHAPES["train_4k"]), 6 steps with the reference launcher's
+# hyperparameters (8 until PR 25, whose phase 22 they pay for); the step
+# time is the median of steps 3-6.
+TRAIN = dict(arch="stablelm-3b", batch=2, seq=4096, steps=6, lr=3e-4)
+TRAIN_TIMED = slice(2, 6)
 # (b) three steps of reduced stablelm-3b in f32 on the card and on the CPU
 # from one state. The matmuls reduce in other orders on the two devices
 # (cuBLAS with TF32 off; the CPU's BLAS), which moves losses and grad
@@ -388,6 +412,29 @@ SHARDED_FAULT_STEPS = 2
 SHARDED_SERVE = dict(SERVE_SHAPE, arch="mistral-nemo-12b", layers=4,
                      new=SHARDED_STEPS + 1, mesh=((2, 2), ("data", "model")),
                      page_axes=("model",), mapping="block_cyclic")
+# Phase 22: training across phase 21's 4 ranks. (a) stablelm-3b at full
+# width and 4 of its 32 layers (phase 14's global batch of 2 x 4,096, 3
+# steps): a rank gathers its 23.1 M-parameter block of each layer over
+# "data" twice a step (forward and remat), reduce-scatters the gathered
+# gradients, and sums the TP partials (forward and remat) and the entry
+# markers' gradients over "model": ~2.2 GB a rank a step, ~5 s at gloo's
+# ~0.45 GB/s between ranks that share the card, so depth is cut to 4
+# layers and the steps to 3 (PERF.md §4). (b) the parity runs, the
+# reduced f32 configuration at the CPU tests' shape; (c) the planted
+# fault on the first parity mesh.
+SHARDED_TRAIN = dict(arch="stablelm-3b", layers=4, batch=2, seq=4096,
+                     steps=3, lr=3e-4, mesh=((2, 2), ("data", "model")))
+SHARDED_TRAIN_PARITY = dict(
+    arch="stablelm-3b", batch=4, seq=32, steps=2,
+    meshes=(((2, 2), ("data", "model"), False),
+            ((2, 2), ("pod", "data"), True)))
+# The CPU tests' bars (tests/test_torch_sharded_train.py): losses and grad
+# norms 1e-5 relative, parameters 0.1 lr a step, moments 1e-5 of each
+# leaf's largest; with int8 pod compression the reference's own bars
+# (loss 1e-5, parameters and moments 5e-4, absolute) and the grad norm
+# within one code step (1 / 127) relative.
+SHARDED_TRAIN_TOL = dict(rel=1e-5, lr_frac_per_step=0.1, moment_rel=1e-5,
+                         ref_loss=1e-5, ref_abs=5e-4, code_step=1 / 127)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1186,11 +1233,16 @@ def phase_mrc(spec) -> dict:
     stages["histogram"] = res.profile["engine_dispatch"] - sum(
         stages.values())
     k_ms, got_d = cuda_ms(lambda: rd.reuse_distance_cuda(p, v), reps=3)
-    p_ms, want_d = cuda_ms(lambda: reuse_distance_ref(p, v))
-    if not torch.equal(got_d, want_d):
+    # The plain O(L^2) count on the first MRC_PLAIN_ROWS rows (distances
+    # never cross rows).
+    n_plain = MRC_PLAIN_ROWS
+    p_ms, want_d = cuda_ms(lambda: reuse_distance_ref(p[:n_plain],
+                                                      v[:n_plain]))
+    if not torch.equal(got_d[:n_plain], want_d):
         raise AssertionError(
-            f"reuse kernel != plain on the full [{p.shape[0]}, {capb}] "
-            f"array: {int((got_d != want_d).sum())} positions")
+            f"reuse kernel != plain on rows 0..{n_plain - 1} of the full "
+            f"[{p.shape[0]}, {capb}] array: "
+            f"{int((got_d[:n_plain] != want_d).sum())} positions")
     b = reuse_bound(prev, valid)
     S, L = prev.shape
     log(f"[MRC route] {spec.n_shards} shards x {L} (bucket; loads "
@@ -1204,8 +1256,9 @@ def phase_mrc(spec) -> dict:
         f"{stages['prev_occurrence']:.2f} s, distance pass (copies "
         f"included) {stages['distance']:.3f} s, histogram (the MRC pass "
         f"less those) {stages['histogram']:.2f} s; kernel {k_ms:.2f} ms "
-        f"(CUDA events), plain {p_ms:.1f} ms, equal on the whole [{S}, {L}] "
-        f"array (tolerance 0); {fmt_bound(b)}; {b['sort_compares']} "
+        f"(CUDA events) on the whole [{S}, {L}] array, plain {p_ms:.1f} ms "
+        f"on its first {n_plain} rows, equal there (tolerance 0); "
+        f"{fmt_bound(b)}; {b['sort_compares']} "
         f"compares of an O(n log n) count, {b['compares']} of the direct "
         f"count; "
         f"miss rate at 16,384 lines {rep16.miss_rate:.6f}")
@@ -1214,7 +1267,8 @@ def phase_mrc(spec) -> dict:
                 bound_by=b["bound_by"], bound_terms=b["bound_terms"],
                 bound_terms_direct_count=b["bound_terms_direct_count"],
                 sort_compares=b["sort_compares"], compares=b["compares"],
-                shape=f"{S}x{L} (the MRC route's rows, full size, lru)")
+                shape=f"{S}x{L} (the MRC route's rows, full size, lru)",
+                plain_shape=f"{n_plain}x{L} (the first {n_plain} rows)")
 
 
 def phase_megabatch(full_ctr, rates: dict) -> dict:
@@ -2638,7 +2692,7 @@ def phase_chunked_replay(full_ctr, full_rep, full_rows, full: dict,
     ``donate=False`` baseline; (b) a stop at 2^21 requests, the checkpoint
     pickled and resumed, equal peak memory in both halves; (c) a
     two-tenant mix at full width against a one-shot ``tier1_counters``;
-    (d) the masked kernel against its plain version on 2^12 requests of
+    (d) the masked kernel against its plain version on 2^11 requests of
     the shard rows from the checkpoint's carry, pads mid-row and at the
     tails, in three plans; (e) ``engine="scan"`` on the card."""
     import pickle
@@ -2794,15 +2848,16 @@ def phase_chunked_replay(full_ctr, full_rep, full_rows, full: dict,
         f"tenants sum to the pool; {per}")
 
     # (d) the masked kernel against its plain version, from the
-    # checkpoint's carry (full caches), on 2^12 requests of the shard rows
-    # cut into three unequal chunks with pads planted.
-    P, W = 2**12, spec.n_windows
+    # checkpoint's carry (full caches), on 2^11 requests of the shard rows
+    # (2^12 until PR 25, which cut it to pay for phase 22) cut into three
+    # unequal chunks with pads planted.
+    P, W = 2**11, spec.n_windows
     rng = np.random.default_rng(13)
     rows = full_rows[:, :P]
     B = rows.shape[0]
     writes_np = rng.random(rows.shape) < 0.3
     chunks = []
-    for lo, hi in ((0, 950), (950, 2800), (2800, P)):
+    for lo, hi in ((0, 475), (475, 1400), (1400, P)):
         # n real requests a row at random positions among the first
         # n + 5n/16 of n + 3n/8 (pads mid-row), then a padded tail.
         n = hi - lo
@@ -3001,7 +3056,7 @@ def _train_full(root: str, card: str, dev) -> None:
     del out
     hyper = TrainHyper(adamw=AdamWConfig(lr=T["lr"], warmup_steps=20,
                                          decay_steps=max(T["steps"], 100)))
-    step_fn = make_train_step(cfg, hyper)
+    step_fn = make_train_step(cfg, hyper=hyper)
     store = ShardedTokenStore(data, n_shards=16, shard_tokens=B * (S + 1) * 4,
                               vocab=cfg.vocab)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in DataCache(
@@ -3095,7 +3150,7 @@ def _train_card_vs_cpu(arch: str, C: dict, card: str, dev) -> None:
     cpu = TrainState(params, adamw_init(params, cfg.opt_state_dtype),
                      init_error_feedback(params))
     gpu = tree_map(lambda t: t.to(dev, copy=True), cpu)
-    step = make_train_step(cfg, TrainHyper(adamw=AdamWConfig(
+    step = make_train_step(cfg, hyper=TrainHyper(adamw=AdamWConfig(
         lr=C["lr"], warmup_steps=0, decay_steps=100)))
     rng = np.random.default_rng(0)
     worst = dict(loss=0.0, grad_norm=0.0)
@@ -3266,7 +3321,7 @@ def _train_with_extras(cfg, F: dict, dev) -> dict:
     params = init_params(cfg, 0, dev)
     state = TrainState(params, adamw_init(params, cfg.opt_state_dtype),
                        init_error_feedback(params))
-    step_fn = make_train_step(cfg, TrainHyper(adamw=AdamWConfig(
+    step_fn = make_train_step(cfg, hyper=TrainHyper(adamw=AdamWConfig(
         lr=TRAIN["lr"], warmup_steps=20, decay_steps=100)))
     out = dict(losses=[], grad_norms=[], aux_losses=[], dropped=[],
                step_s=[], n_params=sum(p.numel() for p in leaves(params)))
@@ -4307,14 +4362,17 @@ def _sharded_rank(rank: int, dev, S: dict, prompts, forced) -> dict:
            for k, v in r.items() if k != "state"})
 
 
-def phase_sharded_serve(dev=torch.device("cuda")) -> dict:
+def phase_sharded_serve(dev=torch.device("cuda"), train: bool = True
+                        ) -> tuple:
     """Phase 21: mistral-nemo-12b served by 4 ranks sharing the card, on a
     (data 2, model 2) mesh with page_axes ("model",): (a) the kernel run
     against the plain run of the same sharded steps, (b) against the
     one-card serve of the same configuration and depth, (c) every page has
     one owner and each rank reads from tier 2 only the pages it owns, (d)
     a planted fault (a page shard's partial dropped) above the bar.
-    Returns the serving kernels' ``sharded_`` keys."""
+    Returns the serving kernels' ``sharded_`` keys and, with ``train``,
+    phase 22's results from the same ranks (``phase_sharded_train``'s
+    input; else None)."""
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import backend_for, spawn_ranks
     S = dict(SHARDED_SERVE, fault_steps=SHARDED_FAULT_STEPS)
@@ -4340,9 +4398,15 @@ def phase_sharded_serve(dev=torch.device("cuda")) -> dict:
     n_ranks = int(np.prod(S["mesh"][0]))
     backend = backend_for(dev, n_ranks)
     t0 = time.perf_counter()
-    ranks = spawn_ranks(_sharded_rank, n_ranks, (S, prompts, forced),
-                        device="cuda")
+    if train:
+        ranks = spawn_ranks(_sharded_ranks, n_ranks,
+                            (S, prompts, forced, SHARDED_TRAIN,
+                             SHARDED_TRAIN_PARITY), device="cuda")
+    else:
+        ranks = spawn_ranks(_sharded_rank, n_ranks, (S, prompts, forced),
+                            device="cuda")
     ranks_s = time.perf_counter() - t0
+    trained = [r.pop("train") for r in ranks] if train else None
     B_loc = S["requests"] // S["mesh"][0][0]
 
     # (a) kernel run against plain run, rank by rank; (b) against the
@@ -4397,7 +4461,9 @@ def phase_sharded_serve(dev=torch.device("cuda")) -> dict:
         f"{S['mesh'][1]}, page_axes {S['page_axes']}, {S['mapping']}, "
         f"backend {backend}: {S['requests']} x {S['prompt']} prompts, "
         f"{steps} decode steps; one-card run {one_ms:.2f} ms/step; ranks "
-        f"spawned and done in {ranks_s:.1f} s; tier-2 reads of layer 0 "
+        f"spawned and done in {ranks_s:.1f} s"
+        f"{' (with phase 22 after the serve)' if train else ''}; tier-2 "
+        f"reads of layer 0 "
         f"checked: {n_reads}, all owned")
     for r in ranks:
         per = [sum(v[2] for v in c.values()) for c in r["run_coll"]]
@@ -4459,7 +4525,297 @@ def phase_sharded_serve(dev=torch.device("cuda")) -> dict:
             "sharded_max_abs_err": e["max_abs_err"],
             "sharded_shape": e["shape"] + f" (rank 0 of {n_ranks}, "
                                           f"{backend}, one card shared)"}
+    return out, trained
+
+
+def _sharded_ranks(rank: int, dev, S: dict, prompts, forced, T: dict,
+                   P: dict) -> dict:
+    """Phases 21 and 22 on one spawn of the ranks: the sharded serve, then
+    (its tensors freed) the sharded training."""
+    out = _sharded_rank(rank, dev, S, prompts, forced)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = _sharded_train_rank(rank, dev, T, P)
     return out
+
+
+def _parity_cfg(arch: str):
+    """Phase 22 (b)'s reduced f32 configuration, f32 moments (as the CPU
+    tests')."""
+    import dataclasses
+    from repro_torch.configs.archs import get_config
+    return dataclasses.replace(get_config(arch).reduced(),
+                               param_dtype="float32",
+                               opt_state_dtype="float32")
+
+
+def _parity_state(cfg, dev):
+    from repro_torch.models.params import init_params
+    from repro_torch.training.compression import init_error_feedback
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import TrainState
+    params = init_params(cfg, 1, dev)
+    return TrainState(params, adamw_init(params, cfg.opt_state_dtype),
+                      init_error_feedback(params))
+
+
+def _parity_batches(cfg, P: dict) -> list:
+    rng = np.random.default_rng(22)
+    return [{k: torch.as_tensor(rng.integers(
+        0, cfg.vocab, (P["batch"], P["seq"])).astype(np.int32))
+        for k in ("tokens", "labels")} for _ in range(P["steps"])]
+
+
+def _np_leaves(tree) -> list:
+    from repro_torch.training.tree import leaves
+    return [t.detach().float().cpu().numpy() for t in leaves(tree)]
+
+
+def _sharded_train_rank(rank: int, dev, T: dict, P: dict) -> dict:
+    """One rank of phase 22: (a) the full-width steps, each timed with its
+    collectives; (b) the parity runs; (c) the planted fault."""
+    import dataclasses
+    from repro_torch.configs.archs import get_config
+    from repro_torch.distributed import axes as dax
+    from repro_torch.launch import serve, spmd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import init_params
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.compression import init_error_feedback
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*T["mesh"])
+    cfg = dataclasses.replace(get_config(T["arch"]), n_layers=T["layers"])
+    t0 = time.perf_counter()
+    full = init_params(cfg, 0, dev)
+    params = tree_map(lambda t: t.clone(), spmd.shard_for_rank(full, cfg,
+                                                               mesh))
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = ts.TrainState(params, adamw_init(params, cfg.opt_state_dtype),
+                          init_error_feedback(params))
+    hyper = ts.TrainHyper(adamw=AdamWConfig(lr=T["lr"], warmup_steps=20,
+                                            decay_steps=100))
+    step, _, _ = spmd.build_train_step(cfg, mesh, hyper)
+    rng = np.random.default_rng(14)
+    batch = spmd.train_batch_for_rank({k: torch.as_tensor(rng.integers(
+        0, cfg.vocab, (T["batch"], T["seq"])).astype(np.int32))
+        for k in ("tokens", "labels")}, mesh)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    serve.reset_launch_counts()
+    ms, coll, metrics = [], [], []
+    dax.time_collectives(True)
+    try:
+        for _ in range(T["steps"]):
+            dax.reset_collective_stats()
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize(dev)
+            ms.append(1e3 * (time.perf_counter() - t1))
+            coll.append(dax.collective_stats())
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        dax.time_collectives(False)
+    launches = serve.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    untrained = _untrained_leaves(state.opt.mu)
+    n_local = sum(t.numel() for t in _leaves(state.params))
+    applied = int(state.opt.step)
+    del state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) parity, (c) the planted fault.
+    pcfg = _parity_cfg(P["arch"])
+    parity = []
+    for shape, axes, comp in P["meshes"]:
+        pmesh = make_mesh(shape, axes)
+        runs = []
+        for fault in (False, True) if not comp else (False,):
+            hy = ts.TrainHyper(aux_weight=0.0, compress_pod_grads=comp)
+            pstep, _, _ = spmd.build_train_step(pcfg, pmesh, hy)
+            st = spmd.shard_state(_parity_state(pcfg, dev), pcfg, pmesh)
+            promote0 = ts.promote
+            if fault:  # the data axis's sum of replicated leaves dropped
+                ts.promote = lambda params, gs_tree, ax: params
+            try:
+                mm = []
+                for b in _parity_batches(pcfg, P):
+                    b = spmd.train_batch_for_rank(b, pmesh)
+                    st, m = pstep(st, {k: v.to(dev) for k, v in b.items()})
+                    mm.append({k: float(v) for k, v in m.items()})
+            finally:
+                ts.promote = promote0
+            runs.append(dict(metrics=mm, params=_np_leaves(st.params),
+                             mu=_np_leaves(st.opt.mu),
+                             nu=_np_leaves(st.opt.nu)))
+        parity.append(dict(coords=pmesh.coords(), runs=runs))
+    return dict(rank=rank, coords=mesh.coords(), init_s=init_s, ms=ms,
+                coll=coll, metrics=metrics, launches=launches, peak=peak,
+                untrained=untrained, applied=applied, n_local=n_local,
+                parity=parity)
+
+
+def _sharded_train_only(rank: int, dev, T: dict, P: dict) -> dict:
+    return _sharded_train_rank(rank, dev, T, P)
+
+
+def _parity_gaps(got: dict, want: dict, lr: float, comp: bool) -> tuple:
+    """(metric gap, parameter gap, moment gap, ok) of one rank's parity
+    run against the one-card blocks ``want``, by phase 22's bars."""
+    tol = SHARDED_TRAIN_TOL
+    keys = ("loss", "grad_norm", "dropped")
+    m_gap = max(abs(g[k] - w[k]) / abs(w[k]) if w[k] else abs(g[k])
+                for g, w in zip(got["metrics"], want["metrics"])
+                for k in keys)
+    p_gap = max(float(np.abs(g - w).max())
+                for g, w in zip(got["params"], want["params"]))
+    mo_rel = max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+                 for name in ("mu", "nu")
+                 for g, w in zip(got[name], want[name]))
+    mo_abs = max(float(np.abs(g - w).max()) for name in ("mu", "nu")
+                 for g, w in zip(got[name], want[name]))
+    if not comp:
+        ok = (m_gap <= tol["rel"] and p_gap <= tol["lr_frac_per_step"] * lr
+              and mo_rel <= tol["moment_rel"])
+    else:
+        ok = (all(abs(g["loss"] - w["loss"]) < tol["ref_loss"] and
+                  abs(g["grad_norm"] / w["grad_norm"] - 1) <= tol["code_step"]
+                  for g, w in zip(got["metrics"], want["metrics"]))
+              and p_gap < tol["ref_abs"] and mo_abs < tol["ref_abs"])
+    return m_gap, p_gap, mo_rel, ok
+
+
+def phase_sharded_train(ranks=None, dev=torch.device("cuda")) -> None:
+    """Phase 22: the sharded training of ``_sharded_train_rank`` on 4 ranks
+    sharing the card (``ranks``: phase 21's spawn's results; None spawns
+    them), checked against the one-card step on the card."""
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    from repro_torch.models import params as pm
+    from repro_torch.training.optimizer import AdamWConfig, lr_schedule
+    from repro_torch.training.train_step import TrainHyper, make_train_step
+    T, P, tag = SHARDED_TRAIN, SHARDED_TRAIN_PARITY, "sharded train"
+    t_phase = time.perf_counter()
+    n_ranks = int(np.prod(T["mesh"][0]))
+    if ranks is None:
+        ranks = spawn_ranks(_sharded_train_only, n_ranks, (T, P),
+                            device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    # (a) every step finite and applied, metrics equal on every rank.
+    for r in ranks:
+        fin = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                  for m in r["metrics"])
+        if not (fin and r["applied"] == T["steps"] and not r["untrained"]):
+            raise AssertionError(f"[{tag}] rank {r['rank']}: finite {fin}, "
+                                 f"steps applied {r['applied']}, untrained "
+                                 f"{r['untrained'][:4]}")
+        if r["metrics"] != ranks[0]["metrics"]:
+            raise AssertionError(f"[{tag}] ranks {r['rank']} and 0 disagree "
+                                 f"on the metrics")
+        if any(r["launches"].values()):
+            raise AssertionError(f"[{tag}] rank {r['rank']} launched hand "
+                                 f"kernels {r['launches']}")
+    log(f"[{tag}, full width] {T['arch']} at {T['layers']} of 32 layers, "
+        f"bf16, remat, f32 moments, on {n_ranks} ranks sharing the card "
+        f"({card}), mesh {T['mesh'][0]} {T['mesh'][1]}, backend "
+        f"{backend_for(dev, n_ranks)}: {T['steps']} steps of {T['batch']} x "
+        f"{T['seq']} tokens; losses "
+        f"{[round(m['loss'], 4) for m in ranks[0]['metrics']]}, grad norms "
+        f"{[round(m['grad_norm'], 4) for m in ranks[0]['metrics']]}, equal "
+        f"on every rank; hand-kernel launches 0")
+    for r in ranks:
+        by: dict = {}
+        for c in r["coll"][1:]:
+            for k, v in c.items():
+                a = by.get(k, (0, 0, 0.0))
+                by[k] = (a[0] + v[0], a[1] + v[1], a[2] + v[2])
+        n_steps = max(len(r["coll"]) - 1, 1)
+        step_ms = float(np.median(r["ms"][1:]))
+        coll_ms = 1e3 * sum(v[2] for v in by.values()) / n_steps
+        log(f"[{tag}, full width] rank {r['rank']} {r['coords']}: "
+            f"{r['n_local'] / 1e6:.1f} M parameters local, init "
+            f"{r['init_s']:.1f} s, steps "
+            f"{[round(x, 1) for x in r['ms']]} ms (collectives timed, the "
+            f"card synchronized around each), median of steps 2-"
+            f"{T['steps']} {step_ms:.1f} ms, collectives {coll_ms:.1f} ms a "
+            f"step ({100 * coll_ms / step_ms:.1f}%); by kind a step (calls, "
+            f"MB sent, ms, share of the step): "
+            + ", ".join(f"{k} ({v[0] // n_steps}, {v[1] / n_steps / 1e6:.0f}"
+                        f", {1e3 * v[2] / n_steps:.0f}, "
+                        f"{100 * 1e3 * v[2] / n_steps / step_ms:.1f}%)"
+                        for k, v in sorted(by.items()))
+            + f"; peak memory {r['peak'] / 1e9:.2f} GB")
+
+    # (b) parity against the one-card step on the card; (c) the fault.
+    pcfg = _parity_cfg(P["arch"])
+    step = make_train_step(pcfg, hyper=TrainHyper(aux_weight=0.0))
+    st = _parity_state(pcfg, dev)
+    one_m = []
+    for b in _parity_batches(pcfg, P):
+        st, m = step(st, {k: v.to(dev) for k, v in b.items()})
+        one_m.append({k: float(v) for k, v in m.items()})
+    lr = sum(float(lr_schedule(AdamWConfig(), torch.tensor(t)))
+             for t in range(1, P["steps"] + 1))
+    fault_gap = None
+    for i, (shape, axes, comp) in enumerate(P["meshes"]):
+        sizes = dict(zip(axes, shape))
+        ms = pm.MeshSizes(data=sizes.get("data", 1),
+                          model=sizes.get("model", 1))
+        specs = pm.param_pspecs(
+            pcfg, ms, data_axis="data" if "data" in axes else None,
+            model_axis="model" if "model" in axes else None)
+        worst = [0.0, 0.0, 0.0]
+        for r in ranks:
+            par = r["parity"][i]
+
+            def cut(tree):
+                return _np_leaves(pm.zip_map(
+                    lambda w, sp: pm.shard_leaf(w, sp, sizes,
+                                                par["coords"]), tree, specs))
+            want = dict(metrics=one_m, params=cut(st.params),
+                        mu=cut(st.opt.mu), nu=cut(st.opt.nu))
+            m_gap, p_gap, mo_gap, ok = _parity_gaps(par["runs"][0], want,
+                                                    lr, comp)
+            worst = [max(a, b) for a, b in zip(worst, (m_gap, p_gap,
+                                                       mo_gap))]
+            if not ok:
+                raise AssertionError(
+                    f"[{tag}] parity {shape} {axes} rank {r['rank']}: "
+                    f"metrics {m_gap:.3e}, params {p_gap:.3e}, moments "
+                    f"{mo_gap:.3e} beyond the bars")
+            if len(par["runs"]) > 1:
+                f = _parity_gaps(par["runs"][1], want, lr, comp)
+                if fault_gap is None or f[0] > fault_gap[0]:
+                    fault_gap = f[:3]
+                if f[3]:
+                    raise AssertionError(f"[{tag}] the planted fault (the "
+                                         f"data sum dropped) passed the bars")
+        log(f"[{tag}, parity] reduced {P['arch']} f32, {P['steps']} steps of "
+            f"{P['batch']} x {P['seq']}, mesh {shape} {axes}"
+            f"{', int8 pod compression' if comp else ''}, every rank against "
+            f"the one-card step on the card (TF32 off): metrics rel "
+            f"{worst[0]:.2e}, params max |diff| {worst[1]:.3e} = "
+            f"{worst[1] / lr:.4f} lr, moments {worst[2]:.2e} of their "
+            f"largest (bars: "
+            + ("the reference's, loss 1e-5, params and moments 5e-4, grad "
+               "norm 1/127 relative" if comp else
+               "1e-5, 0.1 lr a step, 1e-5") + ")")
+    if fault_gap is None:
+        raise AssertionError(f"[{tag}] no planted-fault run")
+    log(f"[{tag}, fault] the data axis's sum of the replicated leaves' "
+        f"gradients dropped: metrics rel {fault_gap[0]:.2e}, params "
+        f"{fault_gap[1]:.3e} ({fault_gap[1] / lr:.3f} lr), moments "
+        f"{fault_gap[2]:.2e}: above the bars")
+    log(f"[{tag}] phase checks {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -4468,30 +4824,56 @@ def main() -> int:
         return 2
     import repro_torch  # noqa: F401  (fails at once without the repo)
     log(card_line())  # name, power limit: as nvidia-smi prints them
+    t_start = time.perf_counter()
+
+    def done(phase: str) -> None:
+        log(f"[smoke] phase {phase} done at "
+            f"{time.perf_counter() - t_start:.1f} s")
     phase_build()
+    done("1 (build)")
     rates = phase_probes()
+    done("2 (probes)")
     phase_kernel_vs_plain(rates)
+    done("3")
     phase_worked_example()
+    done("4")
     full = phase_full_size(rates)
+    done("5")
     full_ctr = full.pop("counters")
     full_rep, full_rows = full.pop("report"), full.pop("rows")
     phase_reuse_vs_plain()
+    done("6")
     phase_mixed_knobs(rates)
+    done("7")
     mrc = phase_mrc(full_size_spec().replace(
         **{"store.policy": "lru", "n_windows": 1}))
+    done("8")
     mega = phase_megabatch(full_ctr, rates)
+    done("9")
     serving, bf16_run = phase_serve()
+    done("10")
     ssd = phase_ssd_serve()
+    done("11")
     rglru, at_rg = phase_rglru_serve()
+    done("12")
     chunked = phase_chunked_replay(full_ctr, full_rep, full_rows, full,
                                    rates)
+    done("13")
     phase_train()
+    done("14")
     phase_configurator()
+    done("15")
     int8 = phase_int8_serve(bf16_run)
+    done("16")
     breadth = [phase_family_serve(S) for S in (WHISPER_SERVE, VLM_SERVE,
                                                MOE_SERVE)]
+    done("17-19")
     phase_train_families()
-    sharded = phase_sharded_serve()
+    done("20")
+    sharded, trained = phase_sharded_serve()
+    done("21 (and 22's ranks)")
+    phase_sharded_train(trained)
+    done("22")
     for entry in serving:
         entry.update(sharded[entry["name"]])
         entry.update(at_rg[entry["name"]])

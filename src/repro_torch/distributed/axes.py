@@ -15,13 +15,36 @@ axes (``psum_many`` / ``pmax_many``) is one collective over the group that
 spans them, as the reference reduces once: two reductions in sequence
 would round in another order.
 
-No collective here has a backward. Each refuses inputs that require
-grad, as the kernels' dispatchers do: ``all_reduce`` under autograd would
-give the transpose semantics of pre-vma JAX without a word (the
-reference's ``psum`` against ``psum_rep`` against ``pvary_entry``). Those
-semantics are the sharded training slice's work. The reference's
-``pvary_*`` helpers and ``vma_of`` type values for ``shard_map``'s
-replication check, which has no counterpart here: they are not ported.
+Gradients through the collectives. The reference differentiates its
+step under ``shard_map(check_vma=True)``, where every value is typed by
+the mesh axes it varies over, and autodiff places the gradient
+reductions from those types. The port has no such types, so each
+collective here carries the backward that those types give it:
+
+- a sum whose output is replicated (:meth:`Axes.psum`, its alias
+  :meth:`Axes.psum_rep`, :meth:`Axes.psum_many`, :meth:`Axes.pmean`) has
+  the identity as its backward: every rank's partial gets the
+  replicated output's gradient;
+- a replicated value consumed by compute that differs from rank to rank
+  passes through :meth:`Axes.enter` (the reference's ``pvary_entry``,
+  and its implicit promotion under vma), whose backward sums the ranks'
+  partial gradients over those axes;
+- :meth:`Axes.all_gather` (the FSDP gather) has a reduce-scatter sum as
+  its backward, so a gathered leaf's gradient comes out as this rank's
+  block summed over the axis (ZeRO-3), and :meth:`Axes.psum_scatter` an
+  all-gather.
+
+``pmax`` and ``pmax_many`` have no backward: the reference takes them on
+values held constant under differentiation, and they refuse inputs that
+require grad. Every rank must issue its collectives in the same order,
+the backward's included: the autograd engine runs one graph's backward
+in one order, and the same graph on every rank. A mismatch hangs until
+the process group's timeout.
+:func:`collective_stats` counts the backward's collectives too, under
+their own kinds (``"psum (backward)"``, ``"psum_scatter (backward)"``,
+``"all_gather (backward)"``). The reference's ``pvary_like`` /
+``vma_of`` type values for ``shard_map``'s check, which has no
+counterpart here: they are not ported.
 
 Transport. The mesh's backend is NCCL where each rank has a card of its
 own, else gloo (ranks that share a card, or run on the CPU;
@@ -29,7 +52,8 @@ own, else gloo (ranks that share a card, or run on the CPU;
 ``all_reduce`` (sum and max; f32, bf16, int32, int64) and ``all_gather``
 in torch 2.11 on an H100 (PERF.md §6) and stages them through
 host memory itself, so the tensors go to the collective as they are; the
-rank's compute stays on its card.
+rank's compute stays on its card. The reduce-scatter goes to
+``reduce_scatter_tensor`` as it is; a backend that refuses it raises.
 """
 from __future__ import annotations
 
@@ -39,8 +63,6 @@ from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
-
-from repro_torch.kernels import refuse_autograd
 
 __all__ = ["Axes", "SINGLE", "collective_stats", "reset_collective_stats",
            "time_collectives"]
@@ -85,6 +107,98 @@ def _collective(kind: str, x: torch.Tensor, run):
     return out
 
 
+def _all_reduce(kind: str, x: torch.Tensor, group, op) -> torch.Tensor:
+    def run(t):
+        t = t.contiguous().clone()
+        dist.all_reduce(t, op=op, group=group)
+        return t
+    return _collective(kind, x, run)
+
+
+def _all_gather(kind: str, x: torch.Tensor, group, n: int, axis: int
+                ) -> torch.Tensor:
+    """The ``n`` ranks' blocks of ``x`` concatenated along ``axis`` in
+    the order of their group rank (their coordinate on the axis)."""
+    def run(t):
+        t = t.contiguous()
+        out = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(out, t, group=group)
+        return torch.cat(out, dim=axis)
+    return _collective(kind, x, run)
+
+
+def _reduce_scatter(kind: str, x: torch.Tensor, group, n: int, axis: int
+                    ) -> torch.Tensor:
+    """The sum over the ``n`` ranks of ``x``, cut into ``n`` blocks along
+    ``axis``: this rank's block (the one at its group rank)."""
+    def run(t):
+        t = t.movedim(axis, 0).contiguous()
+        out = torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, t, op=dist.ReduceOp.SUM,
+                                   group=group)
+        return out.movedim(0, axis)
+    return _collective(kind, x, run)
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce sum whose output is replicated: the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce("psum", x, group, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity, whose backward sums the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_reduce("psum (backward)", g, ctx.group,
+                            dist.ReduceOp.SUM), None)
+
+
+class _Gather(torch.autograd.Function):
+    """Tiled all-gather; its backward a reduce-scatter sum."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, axis):
+        ctx.group, ctx.n, ctx.axis = group, n, axis
+        return _all_gather("all_gather", x, group, n, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter("psum_scatter (backward)", g, ctx.group,
+                                ctx.n, ctx.axis), None, None, None)
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter sum; its backward a tiled all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, axis):
+        ctx.group, ctx.n, ctx.axis = group, n, axis
+        return _reduce_scatter("psum_scatter", x, group, n, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_gather("all_gather (backward)", g, ctx.group, ctx.n,
+                            ctx.axis), None, None, None)
+
+
+def _real(names: Sequence[Optional[str]]) -> tuple:
+    return tuple(n for n in names if n is not None)
+
+
 @dataclasses.dataclass(frozen=True)
 class Axes:
     data: Optional[str] = None   # FSDP + batch axis
@@ -123,56 +237,86 @@ class Axes:
         return m if n % m == 0 else 1
 
     # -- collectives (identity when every axis is absent) ----------------
-    def _reduce(self, x: torch.Tensor, names: Sequence[Optional[str]], op,
-                kind: str) -> torch.Tensor:
-        real = tuple(n for n in names if n is not None)
-        if not real:
-            return x
-        refuse_autograd(f"Axes.{kind}", x)
-        group = self.mesh.group(real)
-
-        def run(t):
-            t = t.contiguous().clone()
-            dist.all_reduce(t, op=op, group=group)
-            return t
-        return _collective(kind, x, run)
-
-    def psum(self, x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
-        return self._reduce(x, (name,), dist.ReduceOp.SUM, "psum")
-
-    def pmax(self, x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
-        return self._reduce(x, (name,), dist.ReduceOp.MAX, "pmax")
-
     def psum_many(self, x: torch.Tensor, names: Sequence[Optional[str]]
                   ) -> torch.Tensor:
-        return self._reduce(x, names, dist.ReduceOp.SUM, "psum")
+        """Sum over the axes ``names`` in one collective; the output is
+        replicated over them, so the backward is the identity."""
+        real = _real(names)
+        if not real:
+            return x
+        return _Sum.apply(x, self.mesh.group(real))
+
+    def psum(self, x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+        return self.psum_many(x, (name,))
+
+    psum_rep = psum  # the reference's name where the sum feeds the loss
+
+    def pmean(self, x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+        """Mean over ``name``, replicated (loss and metric averaging)."""
+        if name is None:
+            return x
+        return self.psum(x, name) / self.size(name)
 
     def pmax_many(self, x: torch.Tensor, names: Sequence[Optional[str]]
                   ) -> torch.Tensor:
-        return self._reduce(x, names, dist.ReduceOp.MAX, "pmax")
+        real = _real(names)
+        if not real:
+            return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise RuntimeError(
+                "Axes.pmax has no backward: take it on a value held "
+                "constant under differentiation (detached), as the "
+                "reference does")
+        return _all_reduce("pmax", x, self.mesh.group(real),
+                           dist.ReduceOp.MAX)
+
+    def pmax(self, x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+        return self.pmax_many(x, (name,))
+
+    def enter(self, x: torch.Tensor, names: Sequence[Optional[str]]
+              ) -> torch.Tensor:
+        """``x``, replicated over ``names``, as consumed by compute that
+        differs from rank to rank over them: the identity, whose backward
+        sums the ranks' partial gradients over ``names`` (the reference's
+        ``pvary_entry``)."""
+        real = _real(names)
+        if not real:
+            return x
+        return _Enter.apply(x, self.mesh.group(real))
 
     def all_gather(self, x: torch.Tensor, name: Optional[str], *,
                    axis: int = 0) -> torch.Tensor:
         """Tiled all-gather: the ranks' blocks concatenated along ``axis``
-        in the order of their coordinate on ``name``."""
+        in the order of their coordinate on ``name``. Backward: the
+        gradient summed over ``name`` and cut to this rank's block."""
         if name is None:
             return x
-        refuse_autograd("Axes.all_gather", x)
-        group = self.mesh.group((name,))
-        n = self.size(name)
+        return _Gather.apply(x, self.mesh.group((name,)), self.size(name),
+                             axis)
 
-        def run(t):
-            t = t.contiguous()
-            out = [torch.empty_like(t) for _ in range(n)]
-            dist.all_gather(out, t, group=group)
-            return torch.cat(out, dim=axis)
-        return _collective("all_gather", x, run)
+    def psum_scatter(self, x: torch.Tensor, name: Optional[str], *,
+                     axis: int = 0) -> torch.Tensor:
+        """The sum over ``name``, cut along ``axis`` into the ranks'
+        blocks in coordinate order: this rank's block (tiled). Backward:
+        the tiled all-gather."""
+        if name is None:
+            return x
+        return _Scatter.apply(x, self.mesh.group((name,)), self.size(name),
+                              axis)
 
+    # -- framework conventions -------------------------------------------
     def fsdp_gather(self, w: torch.Tensor, dim: Optional[int]
                     ) -> torch.Tensor:
         """Gather a parameter's FSDP-sharded ``dim`` (ZeRO-3 unshard);
         the identity for a leaf that is not FSDP-sharded."""
         return w if dim is None else self.all_gather(w, self.data, axis=dim)
+
+    def dp_mean_grads(self, grads):
+        """The gradients' mean over the pod axis (pure data parallelism;
+        ``grads`` a list of tensors)."""
+        if self.pod is None:
+            return grads
+        return [self.pmean(g, self.pod) for g in grads]
 
 
 SINGLE = Axes()  # un-sharded execution: every collective is the identity

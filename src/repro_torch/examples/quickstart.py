@@ -57,7 +57,7 @@ def main(argv=None) -> None:
     params = init_params(cfg, 0, dev)
     state = TrainState(params, adamw_init(params, cfg.opt_state_dtype),
                        init_error_feedback(params))
-    step = make_train_step(cfg, TrainHyper())
+    step = make_train_step(cfg, hyper=TrainHyper())
     rng = np.random.default_rng(0)
     batch = {k: to_device(torch.as_tensor(
         rng.integers(0, cfg.vocab, (2, 64)), dtype=torch.int32), dev)

@@ -1,4 +1,4 @@
-"""Per-rank serving steps over a mesh of ranks (the serving half of the
+"""Per-rank training and serving steps over a mesh of ranks (the
 reference's ``launch/spmd.py``).
 
 The reference wraps the serving step bodies in ``shard_map`` over a mesh
@@ -19,13 +19,25 @@ its rows of the batch (:func:`local_batch`) and its decode state.
   Here they are returned as each rank computed them: they are equal, as
   the tests check, and no collective is spent on them.
 
-``build_train_step``, ``state_pspecs`` and ``batch_pspec`` belong to
-sharded training, which waits (ROADMAP.md module item 4):
-:func:`build_train_step` raises ``NotImplementedError``.
+Training: :func:`build_train_step` returns this rank's step
+(:func:`repro_torch.training.train_step.make_train_step` under the
+mesh's axes), which takes this rank's block of a ``TrainState``
+(:func:`shard_state`: every leaf cut as :func:`state_pspecs` says, the
+moments and the error feedback as their parameters, ``step`` whole) and
+its rows of the batch (:func:`train_batch_for_rank`, split over ``("pod",
+"data")`` as :func:`batch_pspec` says). :func:`gather_state` puts the
+blocks back together. A checkpoint of a sharded state is written in the
+global view, the one-card format (:func:`save_sharded_checkpoint`: each
+leaf gathered, rank 0 writes it), so it restores onto any mesh or onto
+one card: :func:`restore_sharded_checkpoint` reads the global tree and
+cuts this rank's block, as the reference's elastic restore re-shards.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, Callable, NamedTuple
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import Mesh, axes_for_mesh
@@ -33,9 +45,16 @@ from repro_torch.models import params as pm
 from repro_torch.serving.engine import (ServeConfig, make_decode_step,
                                         make_kv_spec, make_prefill_step,
                                         page_shard_index, page_shards)
+from repro_torch.training import checkpoint as ckpt
+from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.train_step import (TrainHyper, TrainState,
+                                             make_train_step)
 
 __all__ = ["mesh_sizes", "batch_axes", "ServeSpecs", "build_serve",
-           "shard_for_rank", "local_batch", "build_train_step"]
+           "shard_for_rank", "local_batch", "batch_pspec", "state_pspecs",
+           "build_train_step", "shard_state", "gather_state",
+           "train_batch_for_rank", "save_sharded_checkpoint",
+           "restore_sharded_checkpoint"]
 
 
 def mesh_sizes(mesh: Mesh) -> pm.MeshSizes:
@@ -108,9 +127,125 @@ def local_batch(x, specs: ServeSpecs):
     return x[specs.batch_shard * n:(specs.batch_shard + 1) * n]
 
 
-def build_train_step(cfg: ModelConfig, mesh: Mesh, hyper=None):
-    """Sharded training is not ported yet."""
-    raise NotImplementedError(
-        "training sharded over several cards is not ported yet (ROADMAP.md "
-        "module item 4): the backward semantics of Axes, build_train_step "
-        "and the pod axis's compressed_psum wait; train on one card")
+def _train_batch_axes(mesh: Mesh) -> tuple:
+    return tuple(n for n in ("pod", "data") if n in mesh.axis_names)
+
+
+def batch_pspec(cfg: ModelConfig, mesh: Mesh) -> dict:
+    """Each batch key's partition: the rows split over ``("pod",
+    "data")``, everything else whole (a tuple a key, as
+    :func:`~repro_torch.models.params.param_pspecs` spells them)."""
+    b = _train_batch_axes(mesh) or None
+    keys = ["tokens", "labels"]
+    if cfg.vlm_prefix:
+        keys.append("prefix_embeds")
+    if cfg.enc_dec:
+        keys.append("frames")
+    return {k: (b,) for k in keys}
+
+
+def state_pspecs(cfg: ModelConfig, mesh: Mesh) -> TrainState:
+    """The partition of every leaf of a ``TrainState``: the moments and
+    the error feedback as their parameters, ``step`` whole."""
+    names = mesh.axis_names
+    pspec = pm.param_pspecs(
+        cfg, mesh_sizes(mesh),
+        data_axis="data" if "data" in names else None,
+        model_axis="model" if "model" in names else None)
+    return TrainState(params=pspec,
+                      opt=AdamWState(step=(), mu=pspec, nu=pspec),
+                      err_fb=pspec)
+
+
+def build_train_step(cfg: ModelConfig, mesh: Mesh,
+                     hyper: TrainHyper = TrainHyper()):
+    """This rank's ``(step, state_specs, batch_specs)``: ``step(state,
+    batch) -> (state, metrics)`` takes this rank's block of the state
+    (:func:`shard_state`) and its rows of the batch
+    (:func:`train_batch_for_rank`), updates the block in place, and
+    returns the reference's four metrics, equal on every rank."""
+    if mesh is None:
+        raise ValueError(
+            "build_train_step builds a rank's step on a mesh of several "
+            "cards (launch.mesh.make_mesh); on one card use "
+            "training.train_step.make_train_step")
+    step = make_train_step(cfg, axes_for_mesh(mesh), mesh_sizes(mesh),
+                           hyper)
+    return step, state_pspecs(cfg, mesh), batch_pspec(cfg, mesh)
+
+
+def _map_state(fn: Callable, state: TrainState, specs: TrainState
+               ) -> TrainState:
+    """``fn(leaf, spec)`` over a ``TrainState`` and its specs."""
+    def tree(a, b):
+        return pm.zip_map(fn, a, b)
+    return TrainState(
+        params=tree(state.params, specs.params),
+        opt=AdamWState(step=fn(state.opt.step, specs.opt.step),
+                       mu=tree(state.opt.mu, specs.opt.mu),
+                       nu=tree(state.opt.nu, specs.opt.nu)),
+        err_fb=tree(state.err_fb, specs.err_fb))
+
+
+def shard_state(state: TrainState, cfg: ModelConfig, mesh: Mesh
+                ) -> TrainState:
+    """This rank's block of a full ``TrainState``, each leaf a copy of its
+    own (the step updates it in place)."""
+    sizes, coords = mesh.sizes(), mesh.coords()
+    return _map_state(
+        lambda w, spec: pm.shard_leaf(w, spec, sizes, coords).clone(),
+        state, state_pspecs(cfg, mesh))
+
+
+def _gather_leaf(ax, w: torch.Tensor, spec: tuple) -> torch.Tensor:
+    with torch.no_grad():
+        for dim, name in enumerate(spec):
+            if name is not None:
+                w = ax.all_gather(w, name, axis=dim)
+    return w
+
+
+def gather_state(state: TrainState, cfg: ModelConfig, mesh: Mesh
+                 ) -> TrainState:
+    """The full ``TrainState`` from the ranks' blocks, on every rank (a
+    collective: every rank calls it)."""
+    ax = axes_for_mesh(mesh)
+    return _map_state(lambda w, spec: _gather_leaf(ax, w, spec), state,
+                      state_pspecs(cfg, mesh))
+
+
+def train_batch_for_rank(batch: dict, mesh: Mesh) -> dict:
+    """This rank's rows of a global training batch (every key split along
+    its first dim over ``("pod", "data")``)."""
+    idx, n = _batch_shard(mesh, _train_batch_axes(mesh))
+
+    def rows(x):
+        x = torch.as_tensor(x)
+        k = x.shape[0] // n
+        return x[idx * k:(idx + 1) * k]
+    return {k: rows(v) for k, v in batch.items()}
+
+
+def save_sharded_checkpoint(state: TrainState, step: int,
+                            cc: "ckpt.CheckpointConfig", cfg: ModelConfig,
+                            mesh: Mesh) -> list:
+    """Save a sharded ``TrainState`` in the global view on the tiers'
+    cadence: each leaf gathered from the ranks' blocks as it is written,
+    rank 0 writing. Every rank calls it; it returns once the snapshot is
+    published, with the paths written."""
+    ax = axes_for_mesh(mesh)
+    lazy = _map_state(lambda w, spec: (lambda: _gather_leaf(ax, w, spec)),
+                      state, state_pspecs(cfg, mesh))
+    out = ckpt.save_checkpoint(lazy, step, cc, write=mesh.rank == 0)
+    dist.barrier()
+    return out
+
+
+def restore_sharded_checkpoint(like: TrainState, cc: "ckpt.CheckpointConfig",
+                               cfg: ModelConfig, mesh: Mesh
+                               ) -> tuple[Any, int]:
+    """The newest valid checkpoint (global view, from any mesh or one
+    card), cut to this rank's block: ``(state, step)``. ``like`` is a
+    state of this rank's (its tree and its device)."""
+    full, step = ckpt.restore_checkpoint(like, cc)
+    return shard_state(full, cfg, mesh), step

@@ -120,7 +120,7 @@ def run_training(
 
     hyper = TrainHyper(adamw=AdamWConfig(lr=lr, warmup_steps=20,
                                          decay_steps=max(steps, 100)))
-    step_fn = make_train_step(cfg, hyper)
+    step_fn = make_train_step(cfg, hyper=hyper)
 
     store = ShardedTokenStore(data_dir, n_shards=16,
                               shard_tokens=batch * (seq + 1) * 4,

@@ -9,6 +9,14 @@ the activation dtype computes. The dense projections and the
 unembedding stay ``torch.matmul``: the reference computes them outside any
 Pallas kernel. Every function here is differentiable under autograd, as
 the train step needs.
+
+Under a model axis (TP) the helpers place the gradient reductions that
+the reference's vma types place (:mod:`repro_torch.distributed.axes`):
+an activation replicated over the axis enters the column-parallel
+projections, the sharded vocabulary and the TP norm's summed normalizer
+through :meth:`~repro_torch.distributed.axes.Axes.enter` (its gradient
+summed over the axis), and the TP partial sums leave through ``psum``
+(its gradient passed through).
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ def rms_norm_tp(x: torch.Tensor, scale: torch.Tensor, eps: float, ax: Axes,
     xf = x.to(_F32)
     ss = torch.sum(xf * xf, dim=-1, keepdim=True)
     if x.shape[-1] != full_width:
-        ss = ax.psum(ss, ax.model)
+        ss = ax.enter(ax.psum(ss, ax.model), (ax.model,))
     y = xf * torch.rsqrt(ss / full_width + eps)
     return (y * (1.0 + scale.to(_F32))).to(x.dtype)
 
@@ -115,16 +123,33 @@ def embed(tokens: torch.Tensor, emb: torch.Tensor, ax: Axes = SINGLE
 
 
 def unembed_loss(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
-                 *, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 ax: Axes = SINGLE, *, mask: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Unembedding and cross-entropy: the mean NLL (f32) of ``labels [B,
     S]`` under the f32 logits of x ``[B, S, d]`` and the unembedding ``[V,
-    d]``, as the reference computes it on one card: logsumexp shifted by
-    the logits' maximum (held constant under differentiation) minus the
-    label's logit. With ``mask [B, S]`` the mean runs over its weight."""
+    d]``, as the reference computes it: logsumexp shifted by the logits'
+    maximum (held constant under differentiation) minus the label's
+    logit. With ``mask [B, S]`` the mean runs over its weight.
+
+    Under a model axis ``emb`` is this rank's block of the vocabulary and
+    no logit leaves its rank: the maximum is a ``pmax`` of the local ones,
+    the exponentials' sum and the label's logit (its rank's, zero on the
+    others; the window starting at ``index(model) * V_local``) are summed
+    over the axis."""
+    v_local = emb.shape[0]
+    if ax.model is not None:
+        x = ax.enter(x, (ax.model,))
     logits = torch.matmul(x.to(_F32), emb.to(_F32).t())   # [B, S, V]
-    m = logits.detach().amax(-1)
-    se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
-    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    m = ax.pmax(logits.detach().amax(-1), ax.model)
+    se = ax.psum_rep(torch.sum(torch.exp(logits - m[..., None]), dim=-1),
+                     ax.model)
+    local = labels.long() - ax.index(ax.model) * v_local
+    label_logit = torch.gather(logits, -1,
+                               local.clamp(0, v_local - 1)[..., None])[..., 0]
+    if ax.model is not None:
+        ok = (local >= 0) & (local < v_local)
+        label_logit = ax.psum_rep(torch.where(ok, label_logit, 0.0),
+                                  ax.model)
     nll = torch.log(se) + m - label_logit
     if mask is not None:
         nll = nll * mask
@@ -166,6 +191,8 @@ def unembed_greedy(x: torch.Tensor, emb: torch.Tensor, ax: Axes = SINGLE
 def mlp_swiglu(x, w_gate, w_up, w_down, ax: Axes = SINGLE) -> torch.Tensor:
     """SwiGLU; under a model axis ``d_ff`` is this rank's block and the
     down projection a TP partial sum (:func:`tp_out`)."""
+    if ax.model is not None:
+        x = ax.enter(x, (ax.model,))
     g = dense(x, w_gate)
     u = dense(x, w_up)
     h = F.silu(g.to(_F32)).to(x.dtype) * u
@@ -216,6 +243,8 @@ def mlp_gelu(x, w1, b1, w2, b2, ax: Axes = SINGLE) -> torch.Tensor:
     dtype, the tanh-approximated gelu (``jax.nn.gelu``'s default) in f32,
     and ``b2`` added in f32 to the unrounded down projection (summed over
     the model axis first, under one)."""
+    if ax.model is not None:
+        x = ax.enter(x, (ax.model,))
     h = dense(x, w1) + b1.to(x.dtype)
     h = F.gelu(h.to(_F32), approximate="tanh").to(x.dtype)
     out = matmul_f32(h.reshape(-1, h.shape[-1]), w2)

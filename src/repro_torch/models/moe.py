@@ -23,7 +23,10 @@ outside any Pallas kernel.
 
 Under a model axis each expert's ``d_ff`` is this rank's block, and the
 combined output a TP partial sum over the axis, as the reference's
-``psum``.
+``psum``. The router, the dispatch and the combine weights are
+replicated over the axis; under autograd the expert buffers and the
+combine weights enter the split compute through ``Axes.enter``, so
+their gradients are summed over it.
 """
 from __future__ import annotations
 
@@ -102,7 +105,7 @@ def moe_swiglu(x: torch.Tensor, w_router: torch.Tensor,
     # SwiGLU at a time, and its outputs into the f32 combine buffer.
     xb = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
     xb[slot] = x[tok]
-    xb = xb[:E * C].reshape(E, C, d)
+    xb = ax.enter(xb[:E * C].reshape(E, C, d), (ax.model,))
     flat = torch.zeros((E * C + 1, d), dtype=_F32, device=dev)
     for e in range(E):
         g = matmul_f32(xb[e], w_gate[e])
@@ -113,7 +116,7 @@ def moe_swiglu(x: torch.Tensor, w_router: torch.Tensor,
         del h
 
     # Combine: each slot's output weighted by its router probability.
-    w = top_p.reshape(-1) * keep
+    w = ax.enter(top_p.reshape(-1) * keep, (ax.model,))
     y = (flat[slot] * w[:, None]).reshape(T, K, d).sum(1)
     y = ax.psum(y, ax.model)  # TP partial sum (f32)
     return MoEOut(y=y.to(x.dtype), aux_loss=aux, dropped=dropped)

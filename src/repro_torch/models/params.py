@@ -19,7 +19,8 @@ shapes stay global: only the dims that are sharded depend on the mesh
 (:class:`MeshSizes`). :func:`param_pspecs` gives each leaf's partition as
 a tuple of axis names (the reference's ``PartitionSpec`` as a plain
 tuple), :func:`fsdp_dims` each leaf's FSDP dim in the per-layer view,
-and :func:`shard_params` slices a full tree into one rank's block.
+:func:`shard_params` slices a full tree into one rank's block, and
+:func:`grad_sync` says how each leaf's gradient is summed across ranks.
 
 TP rule (:meth:`MeshSizes.tp`): a dim is TP-sharded only when the mesh's
 model axis divides it; otherwise compute is replicated across the model
@@ -37,7 +38,8 @@ from repro_torch.device import resolve_device
 
 __all__ = ["ParamDef", "MeshSizes", "pad_vocab", "block_defs",
            "model_layout", "build_defs", "init_params", "param_pspecs",
-           "fsdp_dims", "shard_params"]
+           "fsdp_dims", "zip_map", "shard_params", "shard_leaf",
+           "grad_sync"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +58,10 @@ class ParamDef:
     tp_dim: Optional[int] = None    # dim sharded over "model"
     init: str = "normal"            # normal | zeros | ones | lambda
     scale: float = 0.02
+    # The reference's gradient-sync flag over "model": True where the
+    # leaf is replicated over the axis but its forward consumers are
+    # split over it (:func:`grad_sync`).
+    model_grad: bool = False
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
@@ -70,11 +76,13 @@ def _attn_defs(cfg: ModelConfig, ms: MeshSizes, cross: bool = False
     return {
         f"{pre}wq": ParamDef((d, H * hd), 0, 1 if split else None,
                              scale=d ** -0.5),
-        f"{pre}wk": ParamDef((d, KV * hd), 0, scale=d ** -0.5),
-        f"{pre}wv": ParamDef((d, KV * hd), 0, scale=d ** -0.5),
+        f"{pre}wk": ParamDef((d, KV * hd), 0, scale=d ** -0.5,
+                             model_grad=split),
+        f"{pre}wv": ParamDef((d, KV * hd), 0, scale=d ** -0.5,
+                             model_grad=split),
         f"{pre}wo": ParamDef((H * hd, d), 1, 0 if split else None,
                              scale=(H * hd) ** -0.5),
-        f"{pre}norm": ParamDef((d,), init="zeros"),
+        f"{pre}norm": ParamDef((d,), init="zeros", model_grad=split),
     }
 
 
@@ -88,25 +96,26 @@ def _mlp_defs(cfg: ModelConfig, ms: MeshSizes) -> dict:
             "b1": ParamDef((f,), None, 0 if split else None, init="zeros"),
             "w2": ParamDef((f, d), 1, 0 if split else None, scale=f ** -0.5),
             "b2": ParamDef((d,), init="zeros"),
-            "norm2": ParamDef((d,), init="zeros"),
+            "norm2": ParamDef((d,), init="zeros", model_grad=split),
         }
     if cfg.moe is not None:
         E = cfg.moe.n_experts
         return {
-            "w_router": ParamDef((d, E), 0, scale=d ** -0.5),
+            "w_router": ParamDef((d, E), 0, scale=d ** -0.5,
+                                 model_grad=split),
             "w_gate": ParamDef((E, d, f), 1, 2 if split else None,
                                scale=d ** -0.5),
             "w_up": ParamDef((E, d, f), 1, 2 if split else None,
                              scale=d ** -0.5),
             "w_down": ParamDef((E, f, d), 2, 1 if split else None,
                                scale=f ** -0.5),
-            "norm2": ParamDef((d,), init="zeros"),
+            "norm2": ParamDef((d,), init="zeros", model_grad=split),
         }
     return {
         "w_gate": ParamDef((d, f), 0, tpd, scale=d ** -0.5),
         "w_up": ParamDef((d, f), 0, tpd, scale=d ** -0.5),
         "w_down": ParamDef((f, d), 1, 0 if split else None, scale=f ** -0.5),
-        "norm2": ParamDef((d,), init="zeros"),
+        "norm2": ParamDef((d,), init="zeros", model_grad=split),
     }
 
 
@@ -126,7 +135,7 @@ def _rglru_defs(cfg: ModelConfig, ms: MeshSizes) -> dict:
         "w_x": ParamDef((w,), None, vec, scale=0.5),
         "b_x": ParamDef((w,), None, vec, init="zeros"),
         "lam": ParamDef((w,), None, vec, init="lambda"),
-        "norm": ParamDef((d,), init="zeros"),
+        "norm": ParamDef((d,), init="zeros", model_grad=split),
     }
 
 
@@ -142,17 +151,17 @@ def _ssd_defs(cfg: ModelConfig, ms: MeshSizes) -> dict:
     return {
         "w_z": ParamDef((d, di), 0, tpd, scale=d ** -0.5),
         "w_x": ParamDef((d, di), 0, tpd, scale=d ** -0.5),
-        "w_bc": ParamDef((d, 2 * N), 0, scale=d ** -0.5),
+        "w_bc": ParamDef((d, 2 * N), 0, scale=d ** -0.5, model_grad=split),
         "w_dt": ParamDef((d, H), 0, tpd, scale=d ** -0.5),
         "conv_x": ParamDef((s.conv_width, di), None, tpd, scale=0.1),
-        "conv_b": ParamDef((s.conv_width, N), scale=0.1),
-        "conv_c": ParamDef((s.conv_width, N), scale=0.1),
+        "conv_b": ParamDef((s.conv_width, N), scale=0.1, model_grad=split),
+        "conv_c": ParamDef((s.conv_width, N), scale=0.1, model_grad=split),
         "A_log": ParamDef((H,), None, vec, init="ones"),
         "dt_bias": ParamDef((H,), None, vec, init="zeros"),
         "D": ParamDef((H,), None, vec, init="ones"),
         "norm_g": ParamDef((di,), None, vec, init="zeros"),
         "w_out": ParamDef((di, d), 1, vec, scale=di ** -0.5),
-        "norm": ParamDef((d,), init="zeros"),
+        "norm": ParamDef((d,), init="zeros", model_grad=split),
     }
 
 
@@ -186,7 +195,8 @@ def build_defs(cfg: ModelConfig, ms: MeshSizes = MeshSizes()) -> dict:
     vp = pad_vocab(cfg.vocab)
     tree: dict = {
         "embed": ParamDef((vp, cfg.d_model), 1, 0),
-        "final_norm": ParamDef((cfg.d_model,), init="zeros"),
+        "final_norm": ParamDef((cfg.d_model,), init="zeros",
+                               model_grad=ms.model > 1),
         "blocks": [block_defs(k, cfg, ms, decoder=True)
                    for k in cfg.block_pattern],
         "tail": [block_defs(k, cfg, ms, decoder=True) for k in tail],
@@ -251,6 +261,20 @@ def fsdp_dims(cfg: ModelConfig, ms: MeshSizes = MeshSizes()) -> dict:
     return _map_defs(build_defs(cfg, ms), lambda d, stacked: d.fsdp_dim)
 
 
+def zip_map(fn, tree, *others):
+    """``fn(leaf, *others' items at the leaf's place)`` over a parameter
+    tree (dicts and lists of tensors), rebuilt with its structure; the
+    other trees (specs, flags) share its dicts and lists, whatever their
+    own items are."""
+    if isinstance(tree, dict):
+        return {k: zip_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [zip_map(fn, v, *(o[i] for o in others))
+                for i, v in enumerate(tree)]
+    return fn(tree, *others)
+
+
 def shard_params(params: dict, cfg: ModelConfig, ms: MeshSizes,
                  coords: dict, *, data_axis: Optional[str] = "data",
                  model_axis: Optional[str] = "model") -> dict:
@@ -261,22 +285,30 @@ def shard_params(params: dict, cfg: ModelConfig, ms: MeshSizes,
     specs = param_pspecs(cfg, ms, data_axis=data_axis,
                          model_axis=model_axis)
     sizes = {data_axis: ms.data, model_axis: ms.model}
+    return zip_map(lambda w, spec: shard_leaf(w, spec, sizes, coords),
+                   params, specs)
 
-    def one(w, spec):
-        for dim, name in enumerate(spec):
-            if name is not None:
-                n = w.shape[dim] // sizes[name]
-                w = w.narrow(dim, coords[name] * n, n)
-        return w.contiguous()
 
-    out = {}
-    for name, sub in params.items():
-        if isinstance(sub, list):
-            out[name] = [{k: one(w, specs[name][i][k]) for k, w in blk.items()}
-                         for i, blk in enumerate(sub)]
-        else:
-            out[name] = one(sub, specs[name])
-    return out
+def shard_leaf(w: torch.Tensor, spec: tuple, sizes: dict, coords: dict
+               ) -> torch.Tensor:
+    """The block of ``w`` at ``coords`` under its partition ``spec`` (an
+    axis name or None a dim), contiguous."""
+    for dim, name in enumerate(spec):
+        if name is not None:
+            n = w.shape[dim] // sizes[name]
+            w = w.narrow(dim, coords[name] * n, n)
+    return w.contiguous()
+
+
+def grad_sync(cfg: ModelConfig, ms: MeshSizes = MeshSizes()) -> dict:
+    """Each leaf's gradient sync, as the reference's ``grad_sync``:
+    ``data`` (the leaf is not FSDP-sharded, so its gradient is summed
+    over "data"; an FSDP leaf's is summed by its gather's backward),
+    ``model`` (its :attr:`ParamDef.model_grad`) and ``model_rep`` (its
+    value is replicated over "model": the grad norm counts it once)."""
+    return _map_defs(build_defs(cfg, ms), lambda d, stacked: {
+        "data": d.fsdp_dim is None, "model": d.model_grad,
+        "model_rep": d.tp_dim is None})
 
 
 def _draw(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:

@@ -15,7 +15,9 @@ f32 from step to step.
 
 Under a model axis the recurrence width is this rank's block (the
 recurrence is elementwise over it) and the output projection a TP
-partial sum, as the reference's.
+partial sum, as the reference's; under autograd the block input enters
+both split projections through ``Axes.enter`` (its gradient summed over
+the axis).
 """
 from __future__ import annotations
 
@@ -76,6 +78,7 @@ def recurrent_block(x: torch.Tensor, p: dict, *, capture: bool = False,
     ``scan`` is the recurrence: :func:`rglru_scan` for training, or by
     default the kernel's dispatcher (the prefill's), looked up at the call
     (so that a caller may replace it on its module)."""
+    x = ax.enter(x, (ax.model,))
     y1 = F.gelu(dense(x, p["w1"]).to(_F32), approximate="tanh").to(x.dtype)
     u_pre = dense(x, p["w2"])
     u = causal_conv1d(u_pre, p["conv"])

@@ -15,7 +15,10 @@ decode step's kept in f32.
 Under a model axis the heads and the inner width are this rank's block
 (``B`` / ``C`` replicated), the grouped norm's sum of squares is summed
 over the axis, and the output projection is a TP partial sum, as the
-reference's.
+reference's. Under autograd the block input enters the split
+projections, and ``B`` / ``C`` the scan, through ``Axes.enter``: their
+gradients are summed over the axis, where the reference's vma types
+place those sums.
 """
 from __future__ import annotations
 
@@ -119,14 +122,16 @@ def ssd_block(x: torch.Tensor, p: dict, cfg: SSMConfig, *,
     default the kernel's dispatcher (the prefill's), looked up at the call
     (so that a caller may replace it on its module)."""
     Bsz, S, _ = x.shape
-    z = dense(x, p["w_z"])
-    xin_pre = dense(x, p["w_x"])
+    tp = (ax.model,)
+    xs = ax.enter(x, tp)
+    z = dense(xs, p["w_z"])
+    xin_pre = dense(xs, p["w_x"])
     bc = dense(x, p["w_bc"])
-    dt_raw = dense(x, p["w_dt"])
+    dt_raw = dense(xs, p["w_dt"])
     N, P = cfg.state_dim, cfg.head_dim
     xin = causal_conv1d(xin_pre, p["conv_x"])
-    Bm = causal_conv1d(bc[..., :N], p["conv_b"])
-    Cm = causal_conv1d(bc[..., N:], p["conv_c"])
+    Bm = ax.enter(causal_conv1d(bc[..., :N], p["conv_b"]), tp)
+    Cm = ax.enter(causal_conv1d(bc[..., N:], p["conv_c"]), tp)
     H = p["A_log"].shape[0]
     xh = xin.reshape(Bsz, S, H, P)
     dt = softplus(dt_raw.to(_F32) + p["dt_bias"].to(_F32))

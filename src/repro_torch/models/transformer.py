@@ -29,14 +29,17 @@ under ``torch.utils.checkpoint`` when the configuration asks for remat
 auxiliary loss, whisper's stub frames and a VLM's patch embeddings from
 the batch.
 
-The prefill's blocks run under a mesh as the reference's do (an
+The blocks run under a mesh as the reference's do (an
 :class:`~repro_torch.distributed.axes.Axes` ``ax``, :data:`SINGLE` by
-default): :func:`layers` all-gathers each layer's FSDP-sharded weights
-over the data axis before the layer runs (ZeRO-3); attention takes this
+default): each layer's FSDP-sharded weights are all-gathered over the
+data axis before the layer runs (ZeRO-3; the prefill in :func:`layers`,
+training inside the block that remat recomputes); attention takes this
 rank's query heads over the KV heads their groups need
 (:func:`_local_kv_slice`) and sums ``wo``'s partial products over the
 model axis; the FFNs and the recurrent blocks take theirs likewise.
-Training runs on one card.
+Training runs the same way, with the gradient reductions that the
+collectives' backwards and the entry markers place
+(:mod:`repro_torch.distributed.axes`).
 """
 from __future__ import annotations
 
@@ -124,12 +127,20 @@ def _flash(q, k, v, **kw):
     return o.transpose(1, 2)
 
 
-def _qkv(h, p, cfg: ModelConfig):
+def _heads_in(h, cfg: ModelConfig, ax: Axes):
+    """``h`` as the split query projection consumes it: entered over the
+    model axis where the heads are split (:meth:`Axes.enter`)."""
+    if ax.tp_degree(cfg.n_heads) > 1:
+        return ax.enter(h, (ax.model,))
+    return h
+
+
+def _qkv(h, p, cfg: ModelConfig, ax: Axes = SINGLE):
     """The projections ``q [B, S, H_local, hd]`` (this rank's query heads)
     and ``k, v [B, S, KV, hd]`` (every KV head)."""
     B, S, _ = h.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
-    return (dense(h, p["wq"]).reshape(B, S, -1, hd),
+    return (dense(_heads_in(h, cfg, ax), p["wq"]).reshape(B, S, -1, hd),
             dense(h, p["wk"]).reshape(B, S, KV, hd),
             dense(h, p["wv"]).reshape(B, S, KV, hd))
 
@@ -137,11 +148,13 @@ def _qkv(h, p, cfg: ModelConfig):
 def _local_kv_slice(k, v, cfg: ModelConfig, ax: Axes):
     """The KV heads ``[..., KV, hd]`` (replicated over the model axis)
     that this rank's query heads attend to: with TP over the heads, the
-    groups of its ``H / tp`` heads."""
+    groups of its ``H / tp`` heads (k and v entered over the axis, so
+    their gradients are summed over the ranks' slices)."""
     H, KV = cfg.n_heads, cfg.n_kv_heads
     tp_h = ax.tp_degree(H)
     if tp_h == 1:
         return k, v
+    k, v = ax.enter(k, (ax.model,)), ax.enter(v, (ax.model,))
     h_local = H // tp_h
     count = max(1, (h_local * KV) // H)
     start = (ax.index(ax.model) * h_local * KV) // H
@@ -161,7 +174,7 @@ def _self_attention(x, p, cfg: ModelConfig, rope, *, kind: str,
                     attend: Callable, prefix_len: int = 0,
                     ax: Axes = SINGLE):
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    q, k, v = _qkv(h, p, cfg)
+    q, k, v = _qkv(h, p, cfg, ax)
     if cfg.family != "audio":  # whisper's positions are absolute
         q = apply_rope(q, rope)
         k = apply_rope(k, rope)
@@ -186,7 +199,8 @@ def _cross_attention(x, enc_out, p, cfg: ModelConfig, attend: Callable,
     over the encoder's output."""
     B, S, _ = x.shape
     h = rms_norm(x, p["xnorm"], cfg.norm_eps)
-    q = dense(h, p["xwq"]).reshape(B, S, -1, cfg.head_dim)
+    q = dense(_heads_in(h, cfg, ax), p["xwq"]).reshape(B, S, -1,
+                                                        cfg.head_dim)
     k, v = _local_kv_slice(*cross_kv(enc_out, p, cfg), cfg, ax)
     o = attend(q, k, v, causal=False)
     return _attn_out(o, p["xwo"], cfg, ax)
@@ -263,12 +277,18 @@ def apply_block(kind: str, x, p: dict, cfg: ModelConfig, rope, *,
 
 
 def _remat_block(kind: str, x, p: dict, cfg: ModelConfig, rope,
-                 prefix_len: int = 0, enc_out=None):
+                 prefix_len: int = 0, enc_out=None, ax: Axes = SINGLE,
+                 fdims: Optional[dict] = None):
     """A block of :func:`fwd_hidden`, through the training forms: ``(x,
-    aux_loss, dropped)`` of :func:`_block`."""
-    return _block(kind, x, p, cfg, rope, attend=blockwise_attention,
-                  ssd_scan=ssd_chunked, rglru_scan=rglru_scan,
-                  prefix_len=prefix_len, enc_out=enc_out)[:3]
+    aux_loss, dropped)`` of :func:`_block`. The layer's FSDP-sharded
+    weights are gathered here, inside the block that remat recomputes,
+    so that the backward gathers them again (as the reference's
+    ``jax.checkpoint`` of its superblock does) and every rank issues the
+    same collectives in the same order."""
+    return _block(kind, x, _fetch(ax, p, fdims), cfg, rope,
+                  attend=blockwise_attention, ssd_scan=ssd_chunked,
+                  rglru_scan=rglru_scan, prefix_len=prefix_len,
+                  enc_out=enc_out, ax=ax)[:3]
 
 
 def encode_frames(frames, params: dict, cfg: ModelConfig, *,
@@ -285,7 +305,7 @@ def encode_frames(frames, params: dict, cfg: ModelConfig, *,
         p = _fetch(ax, {k: w[i] for k, w in enc.items()},
                    fdims and fdims["enc_blocks"][0])
         h = rms_norm(x, p["norm"], cfg.norm_eps)
-        q, k, v = _qkv(h, p, cfg)
+        q, k, v = _qkv(h, p, cfg, ax)
         o = attend(q, *_local_kv_slice(k, v, cfg, ax), causal=False)
         x = x + _attn_out(o, p["wo"], cfg, ax)
         x = x + ffn(x, p, cfg, ax)
@@ -309,8 +329,10 @@ def positions_in(x, cfg: ModelConfig, *, prefix_embeds=None):
                                       cfg.rope_theta)
 
 
-def fwd_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-               prefix_embeds=None, frames=None
+def fwd_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+               ax: Axes = SINGLE, *, prefix_embeds=None, frames=None,
+               fdims: Optional[dict] = None,
+               ms: Optional[pm.MeshSizes] = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Token ids ``[B, S]`` (after ``prefix_embeds [B, P, d]`` for a VLM;
     attending to the encoded ``frames [B, T_enc, d]`` for whisper) ->
@@ -318,22 +340,35 @@ def fwd_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     S, d]``, and the MoE's auxiliary loss and dropped-slot fraction summed
     over the layers (f32 zeros without MoE), with the training forms of
     attention and the scans. Under autograd with ``cfg.remat``, each block
-    keeps only its input and recomputes the rest in the backward pass."""
+    keeps only its input and recomputes the rest in the backward pass.
+
+    Under a mesh (``ax``, with ``params`` this rank's block and ``ms`` the
+    mesh's sizes) each layer's FSDP-sharded weights are gathered over the
+    data axis inside its block, the embedding's on its dim 1 before the
+    lookup, and the blocks run TP over the model axis."""
+    ms = ms or pm.MeshSizes()
+    if fdims is None and ax.data is not None:
+        fdims = pm.fsdp_dims(cfg, ms)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens).to(dev)
-    x, prefix_len, rope = positions_in(embed(tokens, params["embed"]), cfg,
+    emb = _gathered(ax, params, "embed", fdims)
+    x, prefix_len, rope = positions_in(embed(tokens, emb, ax), cfg,
                                        prefix_embeds=prefix_embeds)
     enc_out = None
     if cfg.enc_dec:
         if frames is None:
             raise ValueError("whisper needs stub frame embeddings (frames)")
         enc_out = encode_frames(torch.as_tensor(frames).to(dev), params, cfg,
-                                attend=blockwise_attention)
+                                attend=blockwise_attention, ax=ax,
+                                fdims=fdims)
     aux = torch.zeros((), dtype=_F32, device=dev)
     dropped = torch.zeros((), dtype=_F32, device=dev)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in layers(params, cfg):
-        args = (layer.kind, x, layer.p, cfg, rope, prefix_len, enc_out)
+        fd = fdims and (fdims["blocks"] if layer.rep is not None
+                        else fdims["tail"])[layer.pos]
+        args = (layer.kind, x, layer.p, cfg, rope, prefix_len, enc_out, ax,
+                fd)
         x, a, dr = (checkpoint(_remat_block, *args, use_reentrant=False)
                     if remat else _remat_block(*args))
         if a is not None:
@@ -341,22 +376,39 @@ def fwd_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, dropped
 
 
-def fwd_train(params: dict, batch: dict, cfg: ModelConfig, *,
+def _gathered(ax: Axes, params: dict, key: str, fdims: Optional[dict]):
+    """An embedding table with its FSDP-sharded dim gathered over the
+    data axis."""
+    return ax.fsdp_gather(params[key], fdims and fdims[key])
+
+
+def fwd_train(params: dict, batch: dict, cfg: ModelConfig,
+              ax: Axes = SINGLE, *, ms: Optional[pm.MeshSizes] = None,
               aux_weight: float = 0.01) -> tuple[torch.Tensor, Metrics]:
     """Next-token loss of ``batch`` and its metrics, as the reference's
     ``fwd_train``: ``tokens`` and ``labels`` ``[B, S]``, and whisper's stub
     ``frames [B, T_enc, d]`` or a VLM's ``prefix_embeds [B, P, d]``, whose
     positions are dropped before the loss. The unembedding is
     ``unembed``, or ``embed`` when tied; the loss adds ``aux_weight`` times
-    the MoE's auxiliary loss (0 for the other models)."""
+    the MoE's auxiliary loss (0 for the other models).
+
+    Under a mesh the batch is this rank's rows, the unembedding is
+    gathered over the data axis on its dim 1 and sharded over the
+    vocabulary on the model axis, and the loss is the mean over the data
+    axis (the pod axis is the train step's to reduce)."""
+    ms = ms or pm.MeshSizes()
+    fdims = pm.fsdp_dims(cfg, ms) if ax.data is not None else None
     prefix = batch.get("prefix_embeds")
-    x, aux, dropped = fwd_hidden(params, batch["tokens"], cfg,
+    x, aux, dropped = fwd_hidden(params, batch["tokens"], cfg, ax,
                                  prefix_embeds=prefix,
-                                 frames=batch.get("frames"))
+                                 frames=batch.get("frames"), fdims=fdims,
+                                 ms=ms)
     if cfg.vlm_prefix:
         x = x[:, prefix.shape[1]:]
     key = ("embed" if cfg.tie_embeddings or "unembed" not in params
            else "unembed")
     labels = torch.as_tensor(batch["labels"]).to(x.device)
-    loss = unembed_loss(x, params[key], labels) + aux_weight * aux
+    loss = unembed_loss(x, _gathered(ax, params, key, fdims), labels,
+                        ax) + aux_weight * aux
+    loss = ax.pmean(loss, ax.data)
     return loss, Metrics(loss=loss, aux_loss=aux, dropped=dropped)

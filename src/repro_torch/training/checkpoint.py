@@ -14,6 +14,15 @@ byte: a bf16 leaf is a 2-byte void ``.npy`` (``'<V2'``, as numpy saves
 ``ml_dtypes.bfloat16``) with manifest dtype ``"bfloat16"``, written and
 read with numpy alone. A checkpoint written by either package restores
 in the other.
+
+Elastic restores, as the reference's: leaves are saved in the global
+view, so a checkpoint taken on one mesh restores onto any other mesh or
+onto one card. Under a mesh a leaf of the tree may be a callable that
+returns the global leaf (a gather across the ranks, every rank calling
+it), and only the rank that ``write`` s writes it
+(:func:`repro_torch.launch.spmd.save_sharded_checkpoint`); the restored
+global tree is then cut for the target mesh
+(:func:`repro_torch.launch.spmd.restore_sharded_checkpoint`).
 """
 from __future__ import annotations
 
@@ -62,19 +71,28 @@ def _write_leaf(fn: str, arr: np.ndarray, dtype: str) -> None:
         arr.tofile(f)
 
 
-def _save_tree(tree: Any, path: str, step: int) -> None:
+def _save_tree(tree: Any, path: str, step: int, write: bool = True
+               ) -> None:
+    """Write ``tree``'s leaves (a callable leaf is called for its tensor,
+    also when ``write`` is False: the ranks gather together)."""
     tmp = path + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
+    if write:
+        os.makedirs(tmp, exist_ok=True)
     leaves, _ = flatten(tree)
     manifest = {"step": step, "n_leaves": len(leaves), "time": time.time(),
                 "leaves": []}
     for i, leaf in enumerate(leaves):
+        leaf = leaf() if callable(leaf) else leaf
+        if not write:
+            continue
         arr, dtype = _host_array(leaf)
         _write_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr, dtype)
         manifest["leaves"].append({
             "i": i, "shape": list(arr.shape), "dtype": dtype,
             "crc": zlib.crc32(arr) & 0xFFFFFFFF,
         })
+    if not write:
+        return
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(path):
@@ -122,20 +140,23 @@ def _valid_ckpts(d: str) -> list[tuple[int, str]]:
     return sorted(out)
 
 
-def save_checkpoint(state: Any, step: int, cfg: CheckpointConfig
-                    ) -> list[str]:
-    """Save per tier cadence; returns the paths written."""
+def save_checkpoint(state: Any, step: int, cfg: CheckpointConfig, *,
+                    write: bool = True) -> list[str]:
+    """Save per tier cadence; returns the paths written. With ``write``
+    False the leaves are produced (see :func:`_save_tree`) and nothing is
+    written."""
     written = []
     if step % cfg.tier1_every == 0:
         p = os.path.join(cfg.dir_tier1, f"step_{step:08d}")
-        _save_tree(state, p, step)
+        _save_tree(state, p, step, write)
         written.append(p)
         # Ring eviction: keep the newest tier1_keep snapshots.
-        for _, old in _valid_ckpts(cfg.dir_tier1)[:-cfg.tier1_keep]:
+        for _, old in (_valid_ckpts(cfg.dir_tier1)[:-cfg.tier1_keep]
+                       if write else ()):
             shutil.rmtree(old, ignore_errors=True)
     if step % cfg.tier2_every == 0:
         p = os.path.join(cfg.dir_tier2, f"step_{step:08d}")
-        _save_tree(state, p, step)
+        _save_tree(state, p, step, write)
         written.append(p)
     return written
 

@@ -216,7 +216,8 @@ def test_port_step_skips_non_finite_update(bad):
                                  .astype(np.int32)) for k in ("tokens",
                                                               "labels")}
     batch["tokens"][0, 0] = 3
-    step = make_train_step(cfg, TrainHyper(adamw=topt.AdamWConfig(lr=1e-3)))
+    step = make_train_step(
+        cfg, hyper=TrainHyper(adamw=topt.AdamWConfig(lr=1e-3)))
     after, m = step(ts, batch)
     assert not np.isfinite(float(m["grad_norm"]))
     assert int(after.opt.step) == 7

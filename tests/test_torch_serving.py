@@ -23,8 +23,8 @@ by ``params_from_numpy``:
 - the one-launch whole-slot write-back against the reference's per-layer
   write-back, pools equal bit for bit over 48 steps with evictions;
 - the inclusion invariant of ``tests/test_serving.py``;
-- page sharding accepted by the steps, and ``NotImplementedError`` for
-  sharded training, which waits; and int8 KV pools served (their parity with the reference is
+- page sharding accepted by the steps, and ``build_train_step`` without
+  a mesh refused; and int8 KV pools served (their parity with the reference is
   ``tests/test_torch_int8_kv.py``).
 """
 import dataclasses
@@ -359,16 +359,17 @@ def test_one_launch_write_back_and_inclusion(hbm_fraction):
 ])
 def test_unsupported_raises(name, over, match):
     """Page sharding is served now: the steps build with ``page_axes``
-    (one page shard outside a mesh, as the reference's ``SINGLE``). What
-    still waits is training sharded over several cards, which raises
-    naming its ROADMAP item."""
+    (one page shard outside a mesh, as the reference's ``SINGLE``). So is
+    training sharded over several cards (``tests/test_torch_sharded_
+    train.py``): ``build_train_step`` without a mesh raises, naming the
+    one-card step instead."""
     cfg = T_ARCHS[name].reduced()
     sc = teng.ServeConfig(max_seq=64, batch_local=2, **over)
     teng.make_decode_step(cfg, sc)
     teng.make_prefill_step(cfg, sc)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         tspmd.build_train_step(cfg, None)
-    with pytest.raises(NotImplementedError, match="module item 4"):
+    with pytest.raises(ValueError, match="make_train_step"):
         tspmd.build_train_step(cfg, None)
 
 

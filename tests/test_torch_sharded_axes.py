@@ -8,13 +8,14 @@ the parameter shards, on the CPU.
   (integer values: every order of summation gives the same result); the
   sizes, ``batch_shards`` and ``tp_degree``.
 - ``SINGLE`` and an absent axis are the identity (the same tensor back);
-  the collectives refuse inputs that require grad.
+  ``pmax`` refuses inputs that require grad (the sums' and the gathers'
+  backwards are held by ``test_torch_sharded_train.py``).
 - The page shards' combine (``combine_shards``) with one rank's partial
   empty: equal to the combine of the other three (numpy), no NaN.
 - ``shard_params`` equals the reference's addressable shard of
   ``NamedSharding(mesh, param_pspecs(...))`` on 4 forced host devices, for
-  the six families, and ``param_pspecs`` / ``fsdp_dims`` equal the
-  reference's leaf for leaf.
+  the six families, and ``param_pspecs`` / ``fsdp_dims`` / ``grad_sync``
+  equal the reference's leaf for leaf.
 - The plain paged attention over a sequence with no live page gives the
   empty partial exactly.
 """
@@ -176,3 +177,16 @@ def test_shard_params_match_reference(ref_shards, arch):
         for a, b in zip(gl, per_rank[r]):
             assert a.shape == b.shape
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("data,model", [(2, 2), (1, 4), (4, 1)])
+def test_grad_sync_matches_reference(arch, data, model):
+    """Each leaf's gradient-sync flags (``data``, ``model``, ``model_rep``)
+    equal the reference's, in the same tree."""
+    cfg = T_ARCHS[arch].reduced()
+    jcfg = J_ARCHS[arch].reduced()
+    want = jpm.grad_sync(jcfg, jpm.MeshSizes(data=data, model=model))
+    got = tpm.grad_sync(cfg, tpm.MeshSizes(data=data, model=model))
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    assert jax.tree.leaves(got) == jax.tree.leaves(want)

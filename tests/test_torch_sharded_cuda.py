@@ -12,7 +12,10 @@ imports no JAX:
   the combine with it.
 - A 2-rank gloo ``Axes`` round trip on the card (two ranks share it:
   ``backend_for`` picks gloo): ``psum``, ``pmax_many`` and ``all_gather``
-  of CUDA tensors, the results on the card.
+  of CUDA tensors, the results on the card; and the backwards of sharded
+  training: the gather's reduce-scatter (``reduce_scatter_tensor``) in
+  f32 and bf16, ``psum_scatter``, the entry marker's sum and the sum's
+  identity.
 """
 import sys
 from pathlib import Path
@@ -136,3 +139,13 @@ def test_gloo_axes_round_trip_on_the_card(cuda_device):
         np.testing.assert_array_equal(o["psum"], [1.0 + 2.0] * 3)
         np.testing.assert_array_equal(o["pmax"], [2.0] * 3)
         np.testing.assert_array_equal(o["gather"], [[1.0, 2.0]])
+        for dt in ("torch.float32", "torch.bfloat16"):
+            # d/dw of sum(all_gather(w) * coef_r) summed over both ranks:
+            # row r of coef_0 + coef_1 = 3 * [[0, 1], [2, 3]].
+            np.testing.assert_array_equal(o[f"gather_grad_{dt}"],
+                                          [[6.0 * r, 6.0 * r + 3.0]])
+            # this rank's column block of coef_0 + coef_1
+            np.testing.assert_array_equal(o[f"scatter_{dt}"],
+                                          [[3.0 * r], [6.0 + 3.0 * r]])
+        # enter: the ranks' (r + 1) summed, 3; psum: this rank's r + 1
+        np.testing.assert_array_equal(o["enter_grad"], [3.0 + r + 1] * 3)

@@ -81,7 +81,7 @@ def test_card_steps_match_cpu(cuda_device, arch):
     cfg = dataclasses.replace(ARCHS[arch].reduced(), param_dtype="float32")
     cpu = _state(cfg, "cpu")
     gpu = tree_map(lambda t: t.to(cuda_device, copy=True), cpu)
-    step = make_train_step(cfg, TrainHyper(adamw=AdamWConfig(
+    step = make_train_step(cfg, hyper=TrainHyper(adamw=AdamWConfig(
         lr=LR, warmup_steps=0, decay_steps=100)))
     rng = np.random.default_rng(0)
     steps = 3
@@ -180,7 +180,8 @@ def test_families_train_on_card_through_no_hand_kernel(cuda_device, arch):
                 B, n, cfg.d_model)).astype(np.float32) * 0.02).bfloat16()
     b = {k: v.to(cuda_device) for k, v in b.items()}
     serve.reset_launch_counts()
-    loss, metrics, grads = make_loss_and_grads(cfg, TrainHyper())(params, b)
+    run, _ = make_loss_and_grads(cfg, hyper=TrainHyper())
+    loss, metrics, grads = run(params, b)
     assert not any(serve.launch_counts().values())
     assert torch.isfinite(loss)
     assert (float(metrics.aux_loss) > 0) == (cfg.moe is not None)

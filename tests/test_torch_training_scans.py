@@ -106,7 +106,7 @@ def check_train_step(name, accum=1):
         adamw=jopt.AdamWConfig(**adamw), accum_steps=accum)))
     want, wm = jstep(js, _jbatch(b))
     ts = train_state_from_numpy(_np_tree(js), device="cpu")
-    step = make_train_step(tcfg, TrainHyper(
+    step = make_train_step(tcfg, hyper=TrainHyper(
         adamw=topt.AdamWConfig(**adamw), accum_steps=accum))
     got, m = step(ts, _tbatch(b))
     assert _rel(m["loss"], wm["loss"]) <= 1e-5
