@@ -160,6 +160,14 @@ after:
    the card, within the CPU tests' bars
    (``tests/test_torch_sharded_train.py``); (c) a planted fault, the data
    axis's sum of the replicated leaves' gradients dropped, above them.
+23. the dry run (``repro_torch.launch.dryrun``) of phase 22 (a)'s cell:
+   rank 0's step traced on ``meta`` in a fake process group of the 4
+   ranks, in this process and on no card. Its collectives a step (calls
+   and bytes by kind, and their wire bytes) and its argument bytes must
+   equal rank 0's on the card exactly; it prints its peak memory beside
+   rank 0's on the card, with their ratio, and its roofline on the H100's
+   published peaks (the three terms, the dominant one, roofline_frac)
+   beside phase 22's measured step. It takes at most DRY_RUN_LIMIT_S.
 
 It prints:
 
@@ -428,6 +436,10 @@ SHARDED_TRAIN_PARITY = dict(
     arch="stablelm-3b", batch=4, seq=32, steps=2,
     meshes=(((2, 2), ("data", "model"), False),
             ((2, 2), ("pod", "data"), True)))
+# Phase 23: the dry run of phase 22 (a)'s cell (rank 0's step traced on
+# meta in a fake group of 4 ranks, in the smoke's own process) takes at
+# most this long.
+DRY_RUN_LIMIT_S = 30
 # The CPU tests' bars (tests/test_torch_sharded_train.py): losses and grad
 # norms 1e-5 relative, parameters 0.1 lr a step, moments 1e-5 of each
 # leaf's largest; with int8 pod compression the reference's own bars
@@ -4571,23 +4583,36 @@ def _np_leaves(tree) -> list:
     return [t.detach().float().cpu().numpy() for t in leaves(tree)]
 
 
+def _sharded_train_cfg(T: dict):
+    """Phase 22 (a)'s configuration: full width, ``T["layers"]`` layers."""
+    import dataclasses
+    from repro_torch.configs.archs import get_config
+    return dataclasses.replace(get_config(T["arch"]), n_layers=T["layers"])
+
+
+def _sharded_train_hyper(T: dict):
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainHyper
+    return TrainHyper(adamw=AdamWConfig(lr=T["lr"], warmup_steps=20,
+                                        decay_steps=100))
+
+
 def _sharded_train_rank(rank: int, dev, T: dict, P: dict) -> dict:
     """One rank of phase 22: (a) the full-width steps, each timed with its
     collectives; (b) the parity runs; (c) the planted fault."""
-    import dataclasses
-    from repro_torch.configs.archs import get_config
+    from repro_torch.core.roofline import storage_bytes
     from repro_torch.distributed import axes as dax
     from repro_torch.launch import serve, spmd
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.params import init_params
     from repro_torch.training import train_step as ts
     from repro_torch.training.compression import init_error_feedback
-    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.optimizer import adamw_init
     from repro_torch.training.tree import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(*T["mesh"])
-    cfg = dataclasses.replace(get_config(T["arch"]), n_layers=T["layers"])
+    cfg = _sharded_train_cfg(T)
     t0 = time.perf_counter()
     full = init_params(cfg, 0, dev)
     params = tree_map(lambda t: t.clone(), spmd.shard_for_rank(full, cfg,
@@ -4597,9 +4622,7 @@ def _sharded_train_rank(rank: int, dev, T: dict, P: dict) -> dict:
     torch.cuda.empty_cache()
     state = ts.TrainState(params, adamw_init(params, cfg.opt_state_dtype),
                           init_error_feedback(params))
-    hyper = ts.TrainHyper(adamw=AdamWConfig(lr=T["lr"], warmup_steps=20,
-                                            decay_steps=100))
-    step, _, _ = spmd.build_train_step(cfg, mesh, hyper)
+    step, _, _ = spmd.build_train_step(cfg, mesh, _sharded_train_hyper(T))
     rng = np.random.default_rng(14)
     batch = spmd.train_batch_for_rank({k: torch.as_tensor(rng.integers(
         0, cfg.vocab, (T["batch"], T["seq"])).astype(np.int32))
@@ -4607,9 +4630,10 @@ def _sharded_train_rank(rank: int, dev, T: dict, P: dict) -> dict:
     batch = {k: v.to(dev) for k, v in batch.items()}
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
+    arg_bytes = storage_bytes((state, batch))  # the step's arguments
     torch.cuda.reset_peak_memory_stats(dev)
     serve.reset_launch_counts()
-    ms, coll, metrics = [], [], []
+    ms, coll, wire, metrics = [], [], [], []
     dax.time_collectives(True)
     try:
         for _ in range(T["steps"]):
@@ -4620,6 +4644,7 @@ def _sharded_train_rank(rank: int, dev, T: dict, P: dict) -> dict:
             torch.cuda.synchronize(dev)
             ms.append(1e3 * (time.perf_counter() - t1))
             coll.append(dax.collective_stats())
+            wire.append(dax.collective_wire_bytes())
             metrics.append({k: float(v) for k, v in m.items()})
     finally:
         dax.time_collectives(False)
@@ -4658,7 +4683,8 @@ def _sharded_train_rank(rank: int, dev, T: dict, P: dict) -> dict:
                              nu=_np_leaves(st.opt.nu)))
         parity.append(dict(coords=pmesh.coords(), runs=runs))
     return dict(rank=rank, coords=mesh.coords(), init_s=init_s, ms=ms,
-                coll=coll, metrics=metrics, launches=launches, peak=peak,
+                coll=coll, wire=wire, arg_bytes=arg_bytes, metrics=metrics,
+                launches=launches, peak=peak,
                 untrained=untrained, applied=applied, n_local=n_local,
                 parity=parity)
 
@@ -4818,6 +4844,73 @@ def phase_sharded_train(ranks=None, dev=torch.device("cuda")) -> None:
     log(f"[{tag}] phase checks {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_dry_run(ranks) -> None:
+    """Phase 23: the dry run of phase 22 (a)'s cell, rank 0's step traced
+    on ``meta`` in a fake group of its 4 ranks in this process
+    (``repro_torch.launch.dryrun.trace_cell``), held against rank 0's run
+    on the card (``ranks``: phase 22's results)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import make_mesh
+    T, tag = SHARDED_TRAIN, "dry run"
+    t0 = time.perf_counter()
+    card = card_line()
+    n_ranks = int(np.prod(T["mesh"][0]))
+    rec = trace_cell(_sharded_train_cfg(T),
+                     ShapeSpec("sharded_train", T["seq"], T["batch"],
+                               "train"),
+                     n_ranks, lambda: make_mesh(*T["mesh"]), rank=0)
+    r0 = next(r for r in ranks if r["rank"] == 0)
+    dry = {k: (v[0], v[1]) for k, v in rec["collectives"].items()}
+    dry_wire = {k: v[2] for k, v in rec["collectives"].items()}
+    for i, (c, w) in enumerate(zip(r0["coll"][1:], r0["wire"][1:]), 2):
+        real = {k: (v[0], v[1]) for k, v in c.items()}
+        if real != dry or w != dry_wire:
+            raise AssertionError(
+                f"[{tag}] collectives of step {i} on the card {real} "
+                f"(wire {w}) differ from the trace's {dry} (wire "
+                f"{dry_wire})")
+    mem = rec["memory"]
+    if mem["argument_size_in_bytes"] != r0["arg_bytes"]:
+        raise AssertionError(
+            f"[{tag}] argument bytes {mem['argument_size_in_bytes']} "
+            f"traced, {r0['arg_bytes']} on the card")
+    log(f"[{tag}] {T['arch']} at {T['layers']} of 32 layers, rank 0 of "
+        f"{n_ranks} on {T['mesh'][0]} {T['mesh'][1]}, {T['batch']} x "
+        f"{T['seq']} tokens ({rec['trace_s']:.2f} s traced on meta, a fake "
+        f"group, no card): {rec['hlo_flops']:.4e} FLOPs, "
+        f"{rec['hlo_bytes_accessed']:.4e} bytes (all ops "
+        f"{rec['hlo_bytes_all_ops']:.4e}); collectives a step, equal to "
+        f"phase 22 rank 0's steps 2-{T['steps']} on the card exactly (calls, "
+        f"MB sent, MB on the wire): "
+        + ", ".join(f"{k} ({v[0]}, {v[1] / 1e6:.1f}, {v[2] / 1e6:.1f})"
+                    for k, v in rec["collectives"].items())
+        + f"; arguments {mem['argument_size_in_bytes']} bytes, equal to "
+        f"the card's")
+    peak, peak_card = mem["peak_memory_in_bytes"], r0["peak"]
+    log(f"[{tag}] peak memory: traced {peak / 1e9:.2f} GB (the live meta "
+        f"storages, arguments included), on the card {peak_card / 1e9:.2f} "
+        f"GB (rank 0, torch.cuda.max_memory_allocated over phase 22's "
+        f"steps; {card}): ratio {peak / peak_card:.3f}")
+    step_ms = float(np.median(r0["ms"][1:]))
+    bound_ms = 1e3 * max(rec["t_compute_s"], rec["t_memory_s"],
+                         rec["t_collective_s"])
+    log(f"[{tag}] roofline on the H100's published peaks (989 TFLOP/s "
+        f"bf16, 3.35 TB/s, 450 GB/s a link each way): compute "
+        f"{1e3 * rec['t_compute_s']:.3f} ms, memory "
+        f"{1e3 * rec['t_memory_s']:.3f} ms, collective "
+        f"{1e3 * rec['t_collective_s']:.3f} ms; dominant "
+        f"{rec['dominant']}, roofline_frac {rec['roofline_frac']:.4f}; "
+        f"phase 22's measured step (rank 0, median of steps 2-{T['steps']}) "
+        f"{step_ms:.1f} ms on {card}, {step_ms / bound_ms:.1f}x the bound "
+        f"of {bound_ms:.3f} ms")
+    took = time.perf_counter() - t0
+    log(f"[{tag}] phase {took:.1f} s")
+    if took > DRY_RUN_LIMIT_S:
+        raise AssertionError(f"[{tag}] the phase took {took:.1f} s, over "
+                             f"its {DRY_RUN_LIMIT_S} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4874,6 +4967,8 @@ def main() -> int:
     done("21 (and 22's ranks)")
     phase_sharded_train(trained)
     done("22")
+    phase_dry_run(trained)
+    done("23")
     for entry in serving:
         entry.update(sharded[entry["name"]])
         entry.update(at_rg[entry["name"]])

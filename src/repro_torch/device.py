@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "to_device"]
+__all__ = ["resolve_device", "to_device", "follows_card"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -31,3 +31,11 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def follows_card(t: torch.Tensor) -> bool:
+    """Whether work on ``t`` takes the card's spelling where the port
+    spells an operation per device (the optimizer's square root, the f32
+    sums of bf16 products): on a CUDA tensor, and on a ``meta`` one, the
+    dry run's stand-in for the card (:mod:`repro_torch.launch.dryrun`)."""
+    return t.device.type in ("cuda", "meta")

@@ -42,7 +42,14 @@ in one order, and the same graph on every rank. A mismatch hangs until
 the process group's timeout.
 :func:`collective_stats` counts the backward's collectives too, under
 their own kinds (``"psum (backward)"``, ``"psum_scatter (backward)"``,
-``"all_gather (backward)"``). The reference's ``pvary_like`` /
+``"all_gather (backward)"``). Each kind's wire bytes a rank are kept
+beside them (:func:`collective_wire_bytes`), from the output's bytes and
+the group's size under the ring factors of
+:func:`repro_torch.core.roofline.wire_bytes`, with the port's kinds mapped
+onto the reference's (:data:`REF_KIND`: the sums and maxima are
+all-reduces, the gathers all-gathers, the scatters reduce-scatters);
+:func:`collective_wire_stats` sums them by the reference's kinds for the
+roofline. The reference's ``pvary_like`` /
 ``vma_of`` type values for ``shard_map``'s check, which has no
 counterpart here: they are not ported.
 
@@ -64,12 +71,25 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["Axes", "SINGLE", "collective_stats", "reset_collective_stats",
-           "time_collectives"]
+from repro_torch.core.roofline import CollectiveStats, transport, wire_bytes
+
+__all__ = ["Axes", "SINGLE", "REF_KIND", "collective_stats",
+           "collective_wire_bytes", "collective_wire_stats",
+           "reset_collective_stats", "time_collectives"]
+
+# Each kind of collective as the reference's HLO names it.
+REF_KIND = {
+    "psum": "all-reduce", "pmax": "all-reduce",
+    "psum (backward)": "all-reduce",
+    "all_gather": "all-gather", "all_gather (backward)": "all-gather",
+    "psum_scatter": "reduce-scatter",
+    "psum_scatter (backward)": "reduce-scatter",
+}
 
 # Collectives issued, bytes each rank sent into them and (when timed)
-# seconds spent in them, by kind.
+# seconds spent in them, by kind; and their wire bytes a rank.
 _STATS: dict = {}
+_WIRE: dict = {}
 _TIMED = [False]
 
 
@@ -80,8 +100,28 @@ def collective_stats() -> dict:
     return dict(_STATS)
 
 
+def collective_wire_bytes() -> dict:
+    """``{kind: wire bytes}`` a rank of this process's collectives since
+    the last reset (:func:`repro_torch.core.roofline.wire_bytes` of each
+    call's output over its group)."""
+    return dict(_WIRE)
+
+
+def collective_wire_stats() -> CollectiveStats:
+    """The collectives since the last reset as the roofline takes them:
+    calls and wire bytes summed by the reference's kinds."""
+    st = CollectiveStats()
+    for kind, wire in _WIRE.items():
+        ref = REF_KIND[kind]
+        st.wire_bytes += wire
+        st.by_kind[ref] = st.by_kind.get(ref, 0.0) + wire
+        st.count += _STATS[kind][0]
+    return st
+
+
 def reset_collective_stats() -> None:
     _STATS.clear()
+    _WIRE.clear()
 
 
 def time_collectives(on: bool) -> None:
@@ -91,9 +131,9 @@ def time_collectives(on: bool) -> None:
     _TIMED[0] = on
 
 
-def _collective(kind: str, x: torch.Tensor, run):
-    """Run the collective ``run`` on ``x`` (returning the result) and count
-    it."""
+def _collective(kind: str, x: torch.Tensor, run, group):
+    """Run the collective ``run`` on ``x`` (returning the result) over
+    ``group`` and count it."""
     timed = _TIMED[0] and x.is_cuda
     if timed:
         torch.cuda.synchronize(x.device)
@@ -104,15 +144,19 @@ def _collective(kind: str, x: torch.Tensor, run):
     n, b, sec = _STATS.get(kind, (0, 0, 0.0))
     _STATS[kind] = (n + 1, b + x.numel() * x.element_size(),
                     sec + (time.perf_counter() - t0 if timed else 0.0))
+    _WIRE[kind] = _WIRE.get(kind, 0.0) + wire_bytes(
+        REF_KIND[kind], out.numel() * out.element_size(),
+        dist.get_world_size(group))
     return out
 
 
 def _all_reduce(kind: str, x: torch.Tensor, group, op) -> torch.Tensor:
     def run(t):
         t = t.contiguous().clone()
-        dist.all_reduce(t, op=op, group=group)
+        with transport():
+            dist.all_reduce(t, op=op, group=group)
         return t
-    return _collective(kind, x, run)
+    return _collective(kind, x, run, group)
 
 
 def _all_gather(kind: str, x: torch.Tensor, group, n: int, axis: int
@@ -122,9 +166,10 @@ def _all_gather(kind: str, x: torch.Tensor, group, n: int, axis: int
     def run(t):
         t = t.contiguous()
         out = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(out, t, group=group)
+        with transport():
+            dist.all_gather(out, t, group=group)
         return torch.cat(out, dim=axis)
-    return _collective(kind, x, run)
+    return _collective(kind, x, run, group)
 
 
 def _reduce_scatter(kind: str, x: torch.Tensor, group, n: int, axis: int
@@ -135,10 +180,11 @@ def _reduce_scatter(kind: str, x: torch.Tensor, group, n: int, axis: int
         t = t.movedim(axis, 0).contiguous()
         out = torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]),
                           dtype=t.dtype, device=t.device)
-        dist.reduce_scatter_tensor(out, t, op=dist.ReduceOp.SUM,
-                                   group=group)
+        with transport():
+            dist.reduce_scatter_tensor(out, t, op=dist.ReduceOp.SUM,
+                                       group=group)
         return out.movedim(0, axis)
-    return _collective(kind, x, run)
+    return _collective(kind, x, run, group)
 
 
 class _Sum(torch.autograd.Function):

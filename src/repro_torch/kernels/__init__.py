@@ -5,8 +5,10 @@ A wrapper runs its kernel on CUDA tensors and its plain version on CPU
 tensors. Inside :func:`plain_versions`, the serving path's wrappers
 (flash attention, paged attention, page copy, the SSD and RG-LRU scans)
 run their plain versions on CUDA tensors too: the explicit switch with
-which a run on the card is held against the plain path. Nothing falls
-back from one to the other.
+which a run on the card is held against the plain path. The dry run
+(:mod:`repro_torch.launch.dryrun`) uses the same switch for its ``meta``
+tensors, which have no kernel; outside it a ``meta`` tensor raises
+(:func:`use_plain`). Nothing falls back from one to the other.
 
 No kernel has a backward, and a wrapper returns tensors with no
 ``grad_fn``: under autograd every dispatcher refuses inputs that require
@@ -20,7 +22,7 @@ import contextlib
 
 import torch
 
-__all__ = ["plain_versions", "plain_selected", "refuse_autograd"]
+__all__ = ["plain_versions", "use_plain", "refuse_autograd"]
 
 _PLAIN = [False]
 
@@ -36,8 +38,13 @@ def plain_versions():
         _PLAIN[0] = prev
 
 
-def plain_selected() -> bool:
-    return _PLAIN[0]
+def use_plain(device: torch.device) -> bool:
+    """Whether a serving wrapper runs its plain version for tensors on
+    ``device``: always on the CPU; on the card and on ``meta`` (the dry
+    run's shapes) only inside :func:`plain_versions`. A wrapper raises for
+    any other case that is not a CUDA tensor."""
+    return device.type == "cpu" or (device.type in ("cuda", "meta")
+                                    and _PLAIN[0])
 
 
 def refuse_autograd(name: str, *tensors) -> None:

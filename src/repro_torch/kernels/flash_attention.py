@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import plain_selected, refuse_autograd
+from repro_torch.kernels import refuse_autograd, use_plain
 from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 from repro_torch.kernels.ref import attention_ref
@@ -129,8 +129,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, window, prefix_len)
     refuse_autograd("flash_attention", q, k, v)
     kw = dict(causal=causal, window=window, prefix_len=prefix_len)
-    if q.device.type == "cpu" or (q.device.type == "cuda"
-                                   and plain_selected()):
+    if use_plain(q.device):
         return attention_ref(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention path for device {q.device}")

@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import plain_selected, refuse_autograd
+from repro_torch.kernels import refuse_autograd, use_plain
 from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 from repro_torch.kernels.ref import page_copy_ref
@@ -204,7 +204,7 @@ def page_copy(dst: torch.Tensor, src: torch.Tensor, dst_idx: torch.Tensor,
     _check(dst, src, dst_idx, src_idx)
     refuse_autograd("page_copy", dst, src)
     dev = dst.device
-    if dev.type == "cpu" or (dev.type == "cuda" and plain_selected()):
+    if use_plain(dev):
         return page_copy_ref(dst, src, dst_idx, src_idx)
     if dev.type != "cuda":
         raise ValueError(f"no page-copy path for device {dev}")

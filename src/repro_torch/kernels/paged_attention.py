@@ -39,7 +39,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import plain_selected, refuse_autograd
+from repro_torch.kernels import refuse_autograd, use_plain
 from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 from repro_torch.kernels.ref import paged_attention_ref
@@ -196,7 +196,7 @@ def paged_attention(q: torch.Tensor, pool: torch.Tensor,
     _check(q, pool, page_slot, lengths, scale)
     refuse_autograd("paged_attention", q, pool, scale)
     dev = pool.device
-    if dev.type == "cpu" or (dev.type == "cuda" and plain_selected()):
+    if use_plain(dev):
         return paged_attention_ref(q.to(dev), pool, page_slot, lengths,
                                    window, scale)
     if dev.type != "cuda":

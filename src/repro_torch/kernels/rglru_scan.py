@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import plain_selected, refuse_autograd
+from repro_torch.kernels import refuse_autograd, use_plain
 from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 from repro_torch.kernels.ref import softplus
@@ -133,7 +133,7 @@ def rglru_scan(u, w_a, b_a, w_x, b_x, lam) -> torch.Tensor:
     _check(u, (w_a, b_a, w_x, b_x, lam))
     refuse_autograd("rglru_scan", u, w_a, b_a, w_x, b_x, lam)
     dev = u.device
-    if dev.type == "cpu" or (dev.type == "cuda" and plain_selected()):
+    if use_plain(dev):
         return rglru_scan_plain(u, w_a, b_a, w_x, b_x, lam)
     if dev.type != "cuda":
         raise ValueError(f"no RG-LRU-scan path for device {dev}")

@@ -40,7 +40,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import plain_selected, refuse_autograd
+from repro_torch.kernels import refuse_autograd, use_plain
 from repro_torch.kernels.build import CSRC, build_library, check_launch, \
     load_library
 
@@ -178,7 +178,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
         Bm = F.pad(Bm, (0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, pad))
     dev = x.device
-    if dev.type == "cpu" or (dev.type == "cuda" and plain_selected()):
+    if use_plain(dev):
         y, h = ssd_scan_plain(x, dt, A, Bm, Cm, Q)
     elif dev.type == "cuda":
         y, h = ssd_scan_cuda(x, dt, A, Bm, Cm, Q)

@@ -21,8 +21,12 @@ backend (:func:`backend_for`): NCCL where every rank has a card of its
 own, gloo where ranks share a card or run on the CPU. Nothing retries
 another backend after a failure.
 
-The reference's ``make_production_mesh`` (a 256- or 512-chip TPU mesh)
-waits for the slice that ports the dry run and the roofline.
+:func:`make_production_mesh` is the reference's production topology: 16
+× 16 ranks over ``("data", "model")``, or 2 × 16 × 16 over ``("pod",
+"data", "model")``, through :func:`make_mesh` in an initialized group of
+256 or 512 ranks. The dry run (:mod:`repro_torch.launch.dryrun`) builds
+it in one process over a fake process group, whose collectives move
+nothing.
 """
 from __future__ import annotations
 
@@ -42,8 +46,8 @@ import torch.multiprocessing as mp
 
 from repro_torch.distributed.axes import Axes
 
-__all__ = ["Mesh", "make_mesh", "axes_for_mesh", "backend_for",
-           "rank_device", "spawn_ranks"]
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "axes_for_mesh",
+           "backend_for", "rank_device", "spawn_ranks"]
 
 # A rank that waits longer than this in a collective fails.
 TIMEOUT_S = 600
@@ -113,6 +117,16 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
             -1, int(np.prod([shape[i] for i in keep]))).tolist()
         groups[sub], _ = dist.new_subgroups_by_enumeration(lists)
     return Mesh(shape, axes, dist.get_rank(), groups, dist.get_backend())
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh for this rank: 16 × 16 over ``("data",
+    "model")``, or 2 × 16 × 16 over ``("pod", "data", "model")`` (the
+    ``"pod"`` axis pure data parallelism), in an initialized group of 256
+    or 512 ranks."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
 
 
 def axes_for_mesh(mesh: Mesh) -> Axes:

@@ -26,7 +26,10 @@ mesh's axes), which takes this rank's block of a ``TrainState``
 moments and the error feedback as their parameters, ``step`` whole) and
 its rows of the batch (:func:`train_batch_for_rank`, split over ``("pod",
 "data")`` as :func:`batch_pspec` says). :func:`gather_state` puts the
-blocks back together. A checkpoint of a sharded state is written in the
+blocks back together. :func:`state_structs` and :func:`batch_structs`
+are the dry run's stand-ins for a rank's block of the state and for a
+batch: empty tensors on ``meta``, no allocation
+(:mod:`repro_torch.launch.dryrun`). A checkpoint of a sharded state is written in the
 global view, the one-card format (:func:`save_sharded_checkpoint`: each
 leaf gathered, rank 0 writes it), so it restores onto any mesh or onto
 one card: :func:`restore_sharded_checkpoint` reads the global tree and
@@ -53,6 +56,7 @@ from repro_torch.training.train_step import (TrainHyper, TrainState,
 __all__ = ["mesh_sizes", "batch_axes", "ServeSpecs", "build_serve",
            "shard_for_rank", "local_batch", "batch_pspec", "state_pspecs",
            "build_train_step", "shard_state", "gather_state",
+           "batch_structs", "param_block_structs", "state_structs",
            "train_batch_for_rank", "save_sharded_checkpoint",
            "restore_sharded_checkpoint"]
 
@@ -155,6 +159,58 @@ def state_pspecs(cfg: ModelConfig, mesh: Mesh) -> TrainState:
     return TrainState(params=pspec,
                       opt=AdamWState(step=(), mu=pspec, nu=pspec),
                       err_fb=pspec)
+
+
+def batch_structs(cfg: ModelConfig, *, global_batch: int, seq_len: int
+                  ) -> dict:
+    """Empty stand-ins on ``meta`` for a training batch of
+    ``global_batch`` sequences of ``seq_len`` positions (the reference's
+    ``ShapeDtypeStruct`` s): int32 tokens and labels of the text after a
+    VLM's prefix, and bf16 ``prefix_embeds`` / whisper's ``frames``."""
+    s_txt = seq_len - cfg.vlm_prefix
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    out = {"tokens": empty((global_batch, s_txt), torch.int32),
+           "labels": empty((global_batch, s_txt), torch.int32)}
+    if cfg.vlm_prefix:
+        out["prefix_embeds"] = empty(
+            (global_batch, cfg.vlm_prefix, cfg.d_model), torch.bfloat16)
+    if cfg.enc_dec:
+        out["frames"] = empty((global_batch, cfg.enc_seq, cfg.d_model),
+                              torch.bfloat16)
+    return out
+
+
+def param_block_structs(cfg: ModelConfig, mesh: Mesh, dtype=None
+                        ) -> dict:
+    """Empty stand-ins on ``meta`` for this rank's block of the
+    parameters (each leaf cut as :func:`state_pspecs` says), in ``dtype``
+    (``cfg.param_dtype`` by default)."""
+    sizes = mesh.sizes()
+    dtype = dtype or getattr(torch, cfg.param_dtype)
+
+    def block(w, spec):
+        shape = [n // sizes[a] if a is not None else n
+                 for n, a in zip(w.shape, spec)]
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return pm.zip_map(block, pm.param_structs(cfg, mesh_sizes(mesh)),
+                      state_pspecs(cfg, mesh).params)
+
+
+def state_structs(cfg: ModelConfig, mesh: Mesh) -> TrainState:
+    """Empty stand-ins on ``meta`` for this rank's block of a
+    ``TrainState``: the parameters in ``cfg.param_dtype``, the moments in
+    ``cfg.opt_state_dtype``, the error feedback in f32 and ``step`` an
+    int32 scalar, as the reference's dry run types them."""
+    opt = getattr(torch, cfg.opt_state_dtype)
+    return TrainState(
+        params=param_block_structs(cfg, mesh),
+        opt=AdamWState(step=torch.empty((), dtype=torch.int32,
+                                        device="meta"),
+                       mu=param_block_structs(cfg, mesh, opt),
+                       nu=param_block_structs(cfg, mesh, opt)),
+        err_fb=param_block_structs(cfg, mesh, torch.float32))
 
 
 def build_train_step(cfg: ModelConfig, mesh: Mesh,

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import device as _dev
 from repro_torch.distributed.axes import SINGLE, Axes
 
 __all__ = ["dense", "rms_norm", "rms_norm_tp", "tp_out", "rope_tables",
@@ -227,11 +228,11 @@ class _MatmulF32(torch.autograd.Function):
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (2-D or batched 3-D) summed and returned in f32, as the
     reference's ``preferred_element_type=f32`` products that are used
-    before any cast. On the card cuBLAS writes the f32 sums of bf16
-    products directly (under autograd through :class:`_MatmulF32`); on the
-    CPU the operands are widened first (a product of two bf16 values is
-    exact in f32)."""
-    if a.is_cuda and a.dtype != _F32:
+    before any cast. On the card (and on the dry run's ``meta`` stand-in
+    for it) cuBLAS writes the f32 sums of bf16 products directly (under
+    autograd through :class:`_MatmulF32`); on the CPU the operands are
+    widened first (a product of two bf16 values is exact in f32)."""
+    if _dev.follows_card(a) and a.dtype != _F32:
         if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
             return _MatmulF32.apply(a, b)
         return _MatmulF32.forward(a, b)

@@ -37,7 +37,8 @@ from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.device import resolve_device
 
 __all__ = ["ParamDef", "MeshSizes", "pad_vocab", "block_defs",
-           "model_layout", "build_defs", "init_params", "param_pspecs",
+           "model_layout", "build_defs", "init_params", "param_structs",
+           "param_pspecs",
            "fsdp_dims", "zip_map", "shard_params", "shard_leaf",
            "grad_sync"]
 
@@ -368,3 +369,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     out["tail"] = [{k: leaf(d) for k, d in blk.items()}
                    for blk in defs["tail"]]
     return out
+
+
+def param_structs(cfg: ModelConfig, ms: MeshSizes = MeshSizes()) -> dict:
+    """The parameter tree's global shapes in ``cfg.param_dtype``, as
+    empty tensors on ``meta`` (the reference's ``ShapeDtypeStruct`` s, for
+    the dry run: no allocation and no draw)."""
+    dtype = getattr(torch, cfg.param_dtype)
+    reps, _ = model_layout(cfg)
+    stacks = {"blocks": reps, "enc_blocks": cfg.n_enc_layers, "tail": 0}
+
+    def leaf(d: ParamDef, n_stack: int = 0):
+        return torch.empty(((n_stack,) if n_stack else ()) + d.shape,
+                           dtype=dtype, device="meta")
+
+    return {k: ([{n: leaf(d, stacks[k]) for n, d in blk.items()}
+                 for blk in sub] if k in stacks else leaf(sub))
+            for k, sub in build_defs(cfg, ms).items()}

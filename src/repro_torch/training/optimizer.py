@@ -21,6 +21,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch import device as _dev
 from repro_torch.training.tree import leaves, tree_map
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "lr_schedule",
@@ -104,7 +105,7 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded f32 square root: the card's ``sqrtf`` is;
     PyTorch's vectorized CPU ``sqrt`` is not always (one ulp off on some
     entries), while the f64 root of an f32 value rounds to the f32 one."""
-    if x.device.type == "cuda":
+    if _dev.follows_card(x):
         return torch.sqrt(x)
     return torch.sqrt(x.to(torch.float64)).to(_F32)
 

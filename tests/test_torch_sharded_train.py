@@ -37,6 +37,9 @@ carries chunk states in another order).
 feedback bit for bit on equal inputs, and its codes the reference's
 formula computed in numpy. A checkpoint saved on (data 2, model 2)
 resumes bit for bit on the same mesh and restores on one card.
+The dry run (``repro_torch.launch.dryrun``) of the stablelm-3b step on
+(data 2, model 2), traced on ``meta`` in a fake group of 4, counts what
+``program_cost`` counts of rank 0's real step under gloo, exactly.
 """
 import dataclasses
 import os
@@ -192,7 +195,8 @@ def runs(tmp_path_factory):
                                    [r[i] for r in port[m]], one[m][i])
             k += 1
     return dict(train=out, compress=(comp, ref_out[k], port_comp),
-                checkpoint=(ck_job, ck, tmp / "ckpt"))
+                checkpoint=(ck_job, ck, tmp / "ckpt"),
+                cost=(ck_job, ranks[0]["cost"]))
 
 
 def _blocks_of(tree, cfg, shape, axes, coords):
@@ -400,3 +404,37 @@ def test_fault_n_reference_sums_gradients_over_pods(runs, arch):
         assert o["grad_norm"] > 1.0  # the clip binds
         assert abs(w["grad_norm"] / (2 * o["grad_norm"]) - 1) <= REL
         assert abs(p["grad_norm"] / o["grad_norm"] - 1) <= REL
+
+
+def test_dry_run_counts_the_real_step(runs, monkeypatch):
+    """The dry run of rank 0's step, traced on ``meta`` in a fake group of
+    4 ranks, against ``program_cost`` of its real step under gloo on the
+    CPU (the same program on the same shapes, the optimizer's square root
+    spelled as on the CPU on both sides: ``device.follows_card``): FLOPs,
+    bytes and all-op bytes; calls, bytes and wire bytes by kind of
+    collective; the argument bytes (the rank's state and rows of the
+    batch). Nothing of the training step runs on host tensors apart, and
+    nothing crosses from the host."""
+    from repro_torch import device
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import make_mesh
+    job, real = runs["cost"]
+    cfg = tr.train_config(job["arch"])
+    monkeypatch.setattr(device, "follows_card", lambda t: t.is_cuda)
+    rec = trace_cell(cfg, ShapeSpec("train_smoke", S, B, "train"), 4,
+                     lambda: make_mesh((2, 2), ("data", "model")), rank=0)
+    cost = real["cost"]
+    assert rec["status"] == "ok" and rec["rank"] == 0
+    assert rec["hlo_flops"] == cost["flops"] > 0
+    assert rec["hlo_bytes_accessed"] == cost["bytes"] > 0
+    assert rec["hlo_bytes_all_ops"] == cost["bytes_all"]
+    assert rec["host"] == dict(flops=0.0, bytes=0.0, bytes_all=0.0,
+                               transfer_bytes=0.0)
+    assert rec["collectives"] == real["collectives"]
+    assert set(rec["collectives"]) >= {"all_gather", "psum",
+                                       "psum_scatter (backward)"}
+    assert rec["collective_wire_bytes_total"] == sum(
+        v[2] for v in real["collectives"].values())
+    assert rec["memory"]["argument_size_in_bytes"] == cost["argument_bytes"]
+    assert rec["memory"]["peak_memory_in_bytes"] >= cost["argument_bytes"]

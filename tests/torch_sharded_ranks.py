@@ -266,12 +266,40 @@ def checkpoint_rank(rank, dev, job, root):
     return out
 
 
+def cost_rank(rank, dev, job):
+    """A (data 2, model 2) step of ``job`` from its first batch, counted by
+    ``repro_torch.core.roofline.program_cost`` on every rank (its
+    collectives need them all): the counts, the step's argument bytes (the
+    rank's state and its rows of the batch, each in a storage of its own)
+    and its collectives' calls, bytes and wire bytes by kind. The dry run
+    of the same cell on ``meta`` is held against rank 0's."""
+    from repro_torch.core.roofline import program_cost
+    from repro_torch.distributed import axes as dax
+    from repro_torch.training.train_step import TrainHyper
+    mesh = make_mesh((2, 2), ("data", "model"))
+    cfg = train_config(job["arch"])
+    step, _, _ = spmd.build_train_step(cfg, mesh, TrainHyper(aux_weight=0.0))
+    state = spmd.shard_state(full_train_state(job), cfg, mesh)
+    batch = {k: v.clone() for k, v in spmd.train_batch_for_rank(
+        train_batch(job["batches"][0]), mesh).items()}
+    dax.reset_collective_stats()
+    cost = program_cost(step, state, batch)
+    cost.pop("result")
+    wire = dax.collective_wire_bytes()
+    coll = {k: [v[0], v[1], wire[k]]
+            for k, v in sorted(dax.collective_stats().items())}
+    dax.reset_collective_stats()
+    return dict(cost=cost, collectives=coll)
+
+
 def train_all_rank(rank, dev, meshes, comp_leaves, ck_job, root):
     """``test_torch_sharded_train.py``'s work on one spawn of the ranks:
     :func:`train_rank` on each mesh (``{id: (shape, axes, jobs)}``), then
-    :func:`compress_rank` and :func:`checkpoint_rank`."""
+    :func:`compress_rank`, :func:`checkpoint_rank` and :func:`cost_rank`
+    (of the checkpoint's job)."""
     return dict(
         train={m: train_rank(rank, dev, shape, axes, jobs)
                for m, (shape, axes, jobs) in meshes.items()},
         compress=compress_rank(rank, dev, comp_leaves),
-        checkpoint=checkpoint_rank(rank, dev, ck_job, root))
+        checkpoint=checkpoint_rank(rank, dev, ck_job, root),
+        cost=cost_rank(rank, dev, ck_job))
