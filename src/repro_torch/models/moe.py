@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed.axes import SINGLE, Axes
 from repro_torch.models.layers import matmul_f32
@@ -99,6 +100,9 @@ def moe_swiglu(x: torch.Tensor, w_router: torch.Tensor,
     inv_n = torch.tensor(1.0 / keep.numel(), dtype=_F32, device=dev)
     dropped = 1.0 - keep.to(_F32).sum() * inv_n
     slot = torch.where(keep, e_flat * C + pos, E * C)
+    # The expert buffers' fill, counted while a profiler runs.
+    obs.add("moe.kept", keep)
+    obs.add("moe.slots", E * C)
     tok = torch.arange(T, device=dev).repeat_interleave(K)
 
     # Dispatch into the expert buffers (+1 scratch row), one expert's

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.core import online_learning as ol
 from repro_torch.core.mapping import page_to_shard
@@ -347,10 +348,15 @@ def make_decode_step(cfg: ModelConfig, sc: ServeConfig, ax: Axes = SINGLE,
                       cfg_ol.epoch_width * spec.total_pages)
 
     def step(params, state: DecodeState, tokens):
+        with obs.span("engine.decode_step"):
+            return _step(params, state, tokens)
+
+    def _step(params, state: DecodeState, tokens):
         dev = params["embed"].device
         kv = state.kv
         if kv is not None:
-            kv, plan = kvp.alloc_step(kv, spec, cfg_ol, pw, me)
+            with obs.span("kv.alloc"):
+                kv, plan = kvp.alloc_step(kv, spec, cfg_ol, pw, me)
             pools = kvp.pools_of(kv, spec)
             kvp.write_back_evicted(pools, plan)
             index = kvp.token_index(plan, kv.lengths, spec, dev)
@@ -362,29 +368,30 @@ def make_decode_step(cfg: ModelConfig, sc: ServeConfig, ax: Axes = SINGLE,
                   _gathered(params, "embed", ax, fdims), ax)
         if cfg.family == "audio":
             x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
-        for layer in layers(params, cfg, ax, fdims):
-            p = layer.p
-            if layer.kind.startswith("attn"):
-                x = x + _decode_attention(x, p, cfg, pools, index, tables,
-                                          layer.li, rope, spec.window, ax,
-                                          names)
-                if cfg.enc_dec:
-                    st = _layer_state(state, layer)
-                    x = x + _decode_cross_attention(x, p, cfg, st["ck"],
-                                                    st["cv"], ax)
-                x = x + ffn(x, p, cfg, ax)
-                continue
-            st = _layer_state(state, layer)
-            h = rms_norm(x, p["norm"], cfg.norm_eps)
-            if layer.kind == "rglru":
-                out, new = recurrent_block_step(h, st, p, ax)
-                x = x + out
-                x = x + ffn(x, p, cfg, ax)
-            else:
-                out, new = ssd_block_step(h, st, p, ssm, ax)
-                x = x + out
-            for k, v in new.items():
-                st[k].copy_(v)
+        with obs.span("model.layers"):
+            for layer in layers(params, cfg, ax, fdims):
+                p = layer.p
+                if layer.kind.startswith("attn"):
+                    x = x + _decode_attention(x, p, cfg, pools, index, tables,
+                                              layer.li, rope, spec.window, ax,
+                                              names)
+                    if cfg.enc_dec:
+                        st = _layer_state(state, layer)
+                        x = x + _decode_cross_attention(x, p, cfg, st["ck"],
+                                                        st["cv"], ax)
+                    x = x + ffn(x, p, cfg, ax)
+                    continue
+                st = _layer_state(state, layer)
+                h = rms_norm(x, p["norm"], cfg.norm_eps)
+                if layer.kind == "rglru":
+                    out, new = recurrent_block_step(h, st, p, ax)
+                    x = x + out
+                    x = x + ffn(x, p, cfg, ax)
+                else:
+                    out, new = ssd_block_step(h, st, p, ssm, ax)
+                    x = x + out
+                for k, v in new.items():
+                    st[k].copy_(v)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         ue = _gathered(params, _unembedding_key(params, cfg), ax, fdims)
         tok, logprob = unembed_greedy(x, ue, ax)
@@ -415,6 +422,10 @@ def make_prefill_step(cfg: ModelConfig, sc: ServeConfig, ax: Axes = SINGLE,
     needs_kv = _needs_kv(cfg)
 
     def step(params, tokens, extras=None):
+        with obs.span("engine.prefill"):
+            return _step(params, tokens, extras)
+
+    def _step(params, tokens, extras=None):
         extras = extras or {}
         dev = params["embed"].device
         tokens = torch.as_tensor(tokens).to(dev)
